@@ -1,0 +1,47 @@
+"""Host input pipeline: deterministic stream -> device, with background
+prefetch so batch synthesis overlaps device compute (port of
+``repro/data/pipeline.py``)."""
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterator
+
+import torch
+
+
+def batches(stream, start_step: int = 0) -> Iterator[dict]:
+    """Infinite iterator of global batches (leading worker dim)."""
+    step = start_step
+    while True:
+        yield stream.batch_at(step)
+        step += 1
+
+
+def superbatches(it: Iterator, e: int) -> Iterator:
+    """Stack ``e`` consecutive global batches into one ``(E, W, ...)``
+    superbatch — the unit one outer round consumes."""
+    while True:
+        bs = [next(it) for _ in range(e)]
+        yield {k: torch.stack([b[k] for b in bs]) for k in bs[0]}
+
+
+def prefetch(it: Iterator, size: int = 2) -> Iterator:
+    """Background-thread prefetch (double buffering by default)."""
+    q: queue.Queue = queue.Queue(maxsize=size)
+    stop = object()
+
+    def worker():
+        try:
+            for item in it:
+                q.put(item)
+        finally:
+            q.put(stop)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is stop:
+            return
+        yield item

@@ -1,0 +1,102 @@
+"""Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source compiles with ``nvcc`` for Hopper (``sm_90a``) into its own
+shared library with a plain C interface, loaded through ``ctypes``.  A
+library is named by a hash of its source and flags, so an edited source
+rebuilds and an unchanged one is reused.  Builds go to ``build/kernels/``
+at the repository root (listed in ``.gitignore``) and happen at first use,
+never at import: the CPU tests import every module of the package.
+
+:func:`build_all` starts one ``nvcc`` per source at once and waits for all
+of them; :func:`library` returns a loaded library, building it if needed.
+A missing ``nvcc`` or a failed compile raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("fused_prox_sgd", "wire")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: ``$CUDA_HOME/bin/nvcc``, the default
+    toolkit location, or ``nvcc`` on PATH."""
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").is_file():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's "
+            "CUDA kernels build from source at first use")
+    return found
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{h}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; None when its library already exists."""
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> str:
+    """Wait for one nvcc; move its library into place; return its log."""
+    if job is None:
+        return ""
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)          # atomic: a reader never sees half a file
+    return log
+
+
+def build_all() -> dict[str, str]:
+    """Compile every kernel source in parallel; returns {name: nvcc log}
+    (empty for a library that was already built)."""
+    with _lock:
+        jobs = {name: _start(name) for name in SOURCES}
+        return {name: _finish(name, job) for name, job in jobs.items()}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(str(_target(name)))
+            _libs[name] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {what} failed: cudaError {err}")
