@@ -5,15 +5,20 @@ fabric boundary:
 
   * ``group_reduce`` — the weighted group-sum over the leading consensus
     dim, exchanging leaves in the codec's wire format;
+  * ``encode``/``decode`` and the fused compact pair
+    ``encode_compact``/``decode_expand`` — the wire representation of one
+    payload leaf;
   * ``wire_bytes``   — the single source of truth for analytic byte
     accounting (``plan_bytes``, ``round_comm_bytes``).
 
 Registered codecs: ``dense`` (param-dtype payloads, the paper), ``q8``
 (per-row symmetric int8 through the hand-written quantize kernel, ring
-exchange, f32 accumulation) and the ``compact`` marker, which composes
-with one element codec (``compact+q8``).  ``q4`` and ``topk:<rate>``, and
-the encode/decode pairs the reference keeps for tests and benchmarks,
-wait for a later slice of the port: their specs raise
+exchange, f32 accumulation), ``q4`` (packed 4-bit, two channels per
+byte, through the hand-written q4 kernels; nibble-plane ring) and the
+``compact`` marker, which composes with one element codec
+(``compact+q8``, ``compact+q4``).  ``topk:<rate>`` waits for a later
+slice, and so do the encode/decode pairs of ``dense`` and ``q8``, which
+need the gather and q8 dequantize kernels: they raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -92,6 +97,23 @@ class WireCodec:
     #: True when the exchange is an AllGather instead of a reduce
     gather = False
 
+    def encode(self, leaf):
+        """Leaf -> wire payload (anything ``decode`` can invert)."""
+        raise _unported(self.name, "encode")
+
+    def decode(self, payload, like=None):
+        raise _unported(self.name, "decode")
+
+    def encode_compact(self, leaf2d, idx):
+        """Kept-column gather along the minor axis of an (R, C) leaf fused
+        with this codec's encode (the §4.4 packing)."""
+        raise _unported(self.name, "encode_compact")
+
+    def decode_expand(self, payload, idx, full: int, like=None):
+        """Inverse of :meth:`encode_compact`: decode + zero-fill of the
+        dropped channels -> (R, full)."""
+        raise _unported(self.name, "decode_expand")
+
     def init_state(self, tree):
         """Zero error-feedback state for one boundary payload (None for
         stateless codecs)."""
@@ -106,6 +128,12 @@ class WireCodec:
     def wire_bytes(self, leaf_shape, dtype) -> int:
         """Bytes ONE group member puts on the wire for one payload leaf."""
         return leaf_bytes(leaf_shape, dtype)
+
+
+def _unported(name: str, method: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{name}.{method} is not ported yet: it comes in a later slice of "
+        "the PyTorch port")
 
 
 class DenseCodec(WireCodec):
@@ -157,6 +185,86 @@ class Q8Codec(WireCodec):
         return _leaf_elems(leaf_shape) * 1 + 4 * _leaf_rows(leaf_shape)
 
 
+class Q4Codec(WireCodec):
+    """Packed 4-bit symmetric quantization: two channels per byte.
+
+    Rows of the (R, C) leaf view quantize to [-7, 7] (two's-complement
+    nibbles, one f32 scale per row) and pack pairwise into uint8 — one
+    launch of the hand-written ``quantize_pack_q4`` kernel per leaf; the
+    fused gather+pack and unpack+dequantize(+zero-fill) kernels serve the
+    compact encode/decode pair.  The ring exchange rolls the PACKED
+    buffer, so the bytes that cross the fabric are exactly ``wire_bytes``
+    = rows * (ceil(C/2) + 4).  Odd minor dims carry one zero pad nibble
+    (trimmed on decode via the dense template)."""
+
+    name = "q4"
+
+    def encode(self, leaf):
+        from ..kernels import ops
+        return ops.quantize_pack_q4(leaf)
+
+    def decode(self, payload, like=None):
+        from ..kernels import ops
+        if like is None:
+            raise ValueError("q4 decode needs the dense template (the packed "
+                             "minor dim is ambiguous by one pad nibble)")
+        p, scale = payload
+        n = like.shape[-1] if like.ndim else 1
+        out = ops.unpack_dequantize_q4(p, scale, n)
+        return out.reshape(like.shape).to(like.dtype)
+
+    def encode_compact(self, leaf2d, idx):
+        from ..kernels import ops
+        return ops.gather_quantize_q4(leaf2d, idx)
+
+    def decode_expand(self, payload, idx, full, like=None):
+        from ..kernels import ops
+        p, scale = payload
+        out = ops.scatter_dequantize_q4(p, scale, idx, full)
+        return out.to(like.dtype) if like is not None else out
+
+    def group_reduce(self, tree, g, w=None, state=None):
+        from ..kernels import ops
+
+        def planes(pp, ss):
+            # sign-extend the low/high nibbles with int8 arithmetic shifts
+            # (the reference's order of operations), scale in f32
+            s8 = pp.view(torch.int8)
+            lo = ((s8 << 4) >> 4).to(torch.float32) * ss
+            hi = (s8 >> 4).to(torch.float32) * ss
+            return lo, hi
+
+        def one(x):
+            xw = x * _wbcast(w, x) if w is not None else x
+            v = _member_rows(xw)
+            C = v.shape[-1]
+            p, scale = ops.quantize_pack_q4(v)
+            G = x.shape[0] // g
+            # accumulate the nibble PLANES in ring order (own buffer first,
+            # then each shift by one); interleave once at the end
+            acc_lo, acc_hi = planes(p, scale)
+            pr, sr = p, scale
+            for _ in range(g - 1):
+                # the ring rolls the PACKED uint8 buffer + its scales
+                pr = torch.roll(pr.reshape((G, g) + tuple(p.shape[1:])), 1,
+                                dims=1).reshape(p.shape)
+                sr = torch.roll(sr.reshape((G, g) + tuple(scale.shape[1:])),
+                                1, dims=1).reshape(scale.shape)
+                lo, hi = planes(pr, sr)
+                acc_lo = acc_lo + lo
+                acc_hi = acc_hi + hi
+            acc = torch.stack([acc_lo, acc_hi], dim=-1)
+            acc = acc.reshape(tuple(acc_lo.shape[:-1]) + (-1,))[..., :C]
+            out = acc.reshape((G, g) + tuple(acc.shape[1:]))[:, 0]
+            return out.reshape((G,) + tuple(x.shape[1:])).to(x.dtype)
+        return {k: one(x) for k, x in tree.items()}, state
+
+    def wire_bytes(self, leaf_shape, dtype) -> int:
+        C = leaf_shape[-1] if len(leaf_shape) else 1
+        rows = _leaf_rows(leaf_shape)
+        return rows * ((C + 1) // 2) + 4 * rows   # packed u8 + f32 scales
+
+
 class CompactMarker(WireCodec):
     """Structural-compaction marker: composes with an element codec;
     standalone it is ``compact+dense``."""
@@ -188,6 +296,18 @@ class CompositeCodec(WireCodec):
     def element(self) -> WireCodec:
         return self._elem
 
+    def encode(self, leaf):
+        return self._elem.encode(leaf)
+
+    def decode(self, payload, like=None):
+        return self._elem.decode(payload, like)
+
+    def encode_compact(self, leaf2d, idx):
+        return self._elem.encode_compact(leaf2d, idx)
+
+    def decode_expand(self, payload, idx, full, like=None):
+        return self._elem.decode_expand(payload, idx, full, like)
+
     def init_state(self, tree):
         return self._elem.init_state(tree)
 
@@ -218,19 +338,17 @@ def register_codec(name: str, factory) -> None:
     _REGISTRY[name] = factory
 
 
-def _later_slice(name: str):
-    def factory(arg=None):
-        raise NotImplementedError(
-            f"wire codec {name!r} is not ported yet: q4 and top-k (and "
-            "their kernels) come in a later slice of the PyTorch port")
-    return factory
+def _topk_later(arg=None):
+    raise NotImplementedError(
+        "wire codec 'topk' is not ported yet: top-k with error feedback "
+        "comes in a later slice of the PyTorch port")
 
 
 register_codec("dense", lambda arg=None: DenseCodec())
 register_codec("q8", lambda arg=None: Q8Codec())
+register_codec("q4", lambda arg=None: Q4Codec())
 register_codec("compact", lambda arg=None: CompactMarker())
-register_codec("q4", _later_slice("q4"))
-register_codec("topk", _later_slice("topk"))
+register_codec("topk", _topk_later)
 
 
 def list_codecs() -> list[str]:
@@ -238,8 +356,8 @@ def list_codecs() -> list[str]:
 
 
 def get_codec(spec: "str | WireCodec") -> WireCodec:
-    """Resolve a codec spec string: ``dense`` | ``q8`` | ``compact+q8``
-    (markers and one element codec joined by ``+``)."""
+    """Resolve a codec spec string: ``dense`` | ``q8`` | ``q4`` |
+    ``compact+q4`` (markers and one element codec joined by ``+``)."""
     if isinstance(spec, WireCodec):
         return spec
     parts = [p.strip() for p in spec.split("+") if p.strip()]

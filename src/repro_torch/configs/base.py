@@ -60,6 +60,10 @@ class HsadmmConfig:
     # verbatim when set.  Emitted by repro.comm.select
     # AdaptiveWireSelector (--wire-auto) and honored by level_codecs.
     wire_map: Optional[tuple] = None
+    # Physical reconfiguration (Engine.reconfigure / RunConfig.reconfig):
+    # consecutive frozen-mask rounds to wait before the training state
+    # moves onto the budget-B architecture.
+    reconfig_patience: int = 2
     # Overlapped-round depth (paper's leader-follower motivation, async
     # ADMM relaxation):
     #   0 = sequential round: E prox-SGD steps, then the hierarchical

@@ -7,16 +7,22 @@ is a dense contiguous (B, ...) tensor with no index metadata on the wire.
 ``compact_params``/``expand_params`` apply every rule of a plan in plan
 order and in reverse; ``plan_bytes`` is the exact byte accounting.
 
-The whole-state migration of physical reconfiguration (``compact_state``
-and friends) waits for a later slice of the port.
+``compact_state``/``expand_state`` lift the migration to the WHOLE
+H-SADMM state (theta/mom/u, every z/v level) — the physical
+reconfiguration path: once masks freeze, the training state moves onto
+budget-B shapes and the round runs over the smaller dense model.
+``shrunk_plan`` builds the matching all-kept plan.  The port has no
+stateful wire codec yet, so there is no error-feedback state to migrate.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
 
 from .coupling import validate_compaction_order
-from .sparsity import SparsityPlan, channel_idx
+from .sparsity import GroupRule, SparsityPlan, channel_idx, top_k_indices
 
 
 def _bcast_idx(idx, x_ndim: int, ax: int, stack_ndims: int, offset: int):
@@ -123,6 +129,141 @@ def expand_params(params: dict, plan: SparsityPlan, idxs: dict,
                                          rule.stack_ndims, offset,
                                          rule.shards)
     return params
+
+
+# ---------------------------------------------------------------------------
+# whole-state migration (physical reconfiguration)
+# ---------------------------------------------------------------------------
+
+
+_LEAD_GROUPS = ("theta", "mom", "u")   # (W, *param) per-worker trees
+
+
+def compacting_rule(plan: SparsityPlan, key: str, axis: int):
+    """The compactable rule (if any) that slices ``axis`` of leaf ``key``."""
+    for r in plan.rules:
+        if not r.compactable:
+            continue
+        for la in r.all_leaves:
+            if la.key == key and la.axes[0] == axis:
+                return r
+    return None
+
+
+def _composite_dims(rule: GroupRule, param_shapes) -> tuple[int, ...]:
+    """Per-axis dims of a (single-leaf) composite rule's group axes."""
+    if len(rule.leaves) != 1 or rule.followers:
+        raise NotImplementedError(
+            f"projection-only rule {rule.name!r} spans several leaves; "
+            "physical reconfiguration handles single-leaf composite rules")
+    la = rule.leaves[0]
+    return tuple(param_shapes[la.key][a] for a in la.axes)
+
+
+def shrunk_plan(plan: SparsityPlan, budgets: dict,
+                param_shapes: "dict | None" = None) -> SparsityPlan:
+    """The reconfigured engine's plan: every compactable rule's group axis
+    IS its static budget B (all groups kept, so projection and compaction
+    are identities and the consensus keeps its structure).  A
+    projection-only (composite-axis) rule keeps its masks; when another
+    rule compacts one of its group axes (the CNN S_s ∩ S_c case) its
+    composite group count shrinks by the same factor, which needs
+    ``param_shapes`` (full leaf shapes, channel units)."""
+    rules = []
+    for r in plan.rules:
+        if r.compactable:
+            B = int(budgets[r.name])
+            rules.append(dataclasses.replace(r, groups=B, keep=B))
+            continue
+        overlap = [(la.key, a) for la in r.all_leaves for a in la.axes
+                   if compacting_rule(plan, la.key, a) is not None]
+        if not overlap:
+            rules.append(r)
+            continue
+        if param_shapes is None:
+            raise ValueError(
+                f"projection-only rule {r.name!r} shares compacted axes "
+                f"{overlap}; shrunk_plan needs param_shapes to resolve "
+                "the composite group dims")
+        dims = _composite_dims(r, param_shapes)
+        la = r.leaves[0]
+        new_groups = 1
+        for a, d in zip(la.axes, dims):
+            cr = compacting_rule(plan, la.key, a)
+            new_groups *= d if cr is None \
+                else int(budgets[cr.name]) * cr.group_size
+        rules.append(dataclasses.replace(
+            r, groups=new_groups, keep=min(r.keep, new_groups)))
+    return SparsityPlan(tuple(rules))
+
+
+def shrunk_projection_mask_state(rule: GroupRule, new_rule: GroupRule,
+                                 mstate: dict, plan: SparsityPlan,
+                                 idxs: dict, param_shapes: dict) -> dict:
+    """Migrate a projection-only composite rule's frozen mask state onto
+    the reconfigured shapes: gather the mask along every group axis that
+    another rule compacts, and rebuild idx/valid at the shrunk keep
+    budget (kept groups first, ties to the lower index as
+    ``jax.lax.top_k`` breaks them, then sorted).  Only stack-free
+    composite rules occur (the CNN S_s rules); stacked ones raise."""
+    if rule.stack_ndims != 0:
+        raise NotImplementedError(
+            f"composite-rule mask migration with stack_ndims="
+            f"{rule.stack_ndims} ({rule.name!r})")
+    la = rule.leaves[0]
+    dims = _composite_dims(rule, param_shapes)
+    m = mstate["mask"].reshape(dims)
+    for i, a in enumerate(la.axes):
+        cr = compacting_rule(plan, la.key, a)
+        if cr is None:
+            continue
+        m = torch.index_select(m, i, channel_idx(cr, idxs[cr.name]))
+    m = m.reshape(-1)
+    idx = torch.sort(top_k_indices(m, new_rule.keep), dim=-1).values
+    return {"idx": idx, "valid": m[idx], "mask": m,
+            "drift": torch.zeros((), dtype=torch.float32, device=m.device)}
+
+
+def compact_state(state: dict, plan: SparsityPlan, idxs: dict,
+                  new_masks: dict) -> dict:
+    """Migrate a frozen full-shape H-SADMM state onto budget-B shapes.
+
+    Every per-worker tree (theta/mom/u) and every consensus level (z[k],
+    v[k]) is sliced through ``compact_params`` with the frozen kept-index
+    set; rho, weights and the counter are shape-invariant.  Dropping the
+    discarded coordinates IS the reconfiguration's projection:
+    ``expand_state(compact_state(s))`` equals ``s`` with the dropped
+    groups zeroed."""
+    out = dict(state)
+    for g in _LEAD_GROUPS:
+        if g in state:
+            out[g] = compact_params(state[g], plan, idxs, offset=1)
+    out["z"] = [compact_params(z, plan, idxs, offset=1) for z in state["z"]]
+    out["v"] = [compact_params(v, plan, idxs, offset=1) for v in state["v"]]
+    out["masks"] = new_masks
+    return out
+
+
+def expand_state(state: dict, plan: SparsityPlan, idxs: dict, fulls: dict,
+                 masks_full: dict) -> dict:
+    """Inverse of :func:`compact_state`: zero-fill every migrated tree back
+    onto the full-architecture shapes.  ``masks_full`` is the frozen
+    full-shape mask state the reconfiguration was derived from; it is
+    reinstated with zero drift, so the result is a valid frozen
+    full-shape state."""
+    out = dict(state)
+
+    def exp(tree):
+        return expand_params(tree, plan, idxs, fulls, offset=1)
+
+    for g in _LEAD_GROUPS:
+        if g in state:
+            out[g] = exp(state[g])
+    out["z"] = [exp(z) for z in state["z"]]
+    out["v"] = [exp(v) for v in state["v"]]
+    out["masks"] = {name: dict(m, drift=torch.zeros_like(m["drift"]))
+                    for name, m in masks_full.items()}
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@ import math
 import torch
 
 from . import fused_prox_sgd as _prox
+from . import ref as _ref
 from . import wire as _wire
 
 
@@ -103,3 +104,44 @@ def quantize_rows(x, levels: int = 127):
     q, s = _wire.quantize_rows(_view2d(x.to(torch.float32), R, C),
                                levels=levels)
     return q.view(shape), s.view(_scale_shape(shape))
+
+
+def quantize_pack_q4(x):
+    """q4 encode of any-rank ``x``: per-row quantize to [-7, 7] + pack two
+    channels per byte -> (packed uint8 shape[:-1] + (ceil(C/2),), scale
+    f32).  Odd minor dims carry one zero pad nibble."""
+    shape = tuple(x.shape)
+    R, C = _rc(shape)
+    p, s = _wire.quantize_pack_q4(_view2d(x.to(torch.float32), R, C))
+    p_shape = (shape[:-1] if shape else ()) + ((C + 1) // 2,)
+    return p.view(p_shape), s.view(_scale_shape(shape))
+
+
+def _arange_idx(n: int, device):
+    return torch.arange(n, dtype=torch.int64, device=device)
+
+
+def unpack_dequantize_q4(p, scale, n: int):
+    """Inverse of :func:`quantize_pack_q4`: packed (..., Cp) -> f32
+    (..., n), trimming the pad nibble (``n`` = true minor dim)."""
+    shape = tuple(p.shape)
+    Cp = shape[-1] if shape else 1
+    R = math.prod(shape[:-1]) if len(shape) >= 2 else 1
+    out = _wire.unpack_gather_dequantize_q4(
+        _view2d(p, R, Cp), _view2d(scale, R, 1), _arange_idx(n, p.device))
+    return out.view((shape[:-1] if len(shape) >= 2 else ()) + (n,))
+
+
+def gather_quantize_q4(x, idx):
+    """x (R, C), idx (B,): gather + q4 quantize + nibble pack, one pass
+    -> (packed uint8 (R, ceil(B/2)), scale (R, 1))."""
+    return _wire.gather_quantize_q4(
+        x.to(torch.float32).contiguous(), idx.to(torch.int64).contiguous())
+
+
+def scatter_dequantize_q4(p, scale, idx, full: int):
+    """Fused q4 unpack + dequantize + zero-fill expansion -> (R, full),
+    through the operands of :func:`ref.expand_operands_q4`."""
+    pp, inv = _ref.expand_operands_q4(p, idx, full)
+    return _wire.unpack_gather_dequantize_q4(
+        pp, _view2d(scale, p.shape[0], 1), inv)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..core.coupling import CouplingGraph
+from ..core.shrinkage import compacting_rule
 from ..core.sparsity import GroupRule, LeafAxis, SparsityPlan, keep_count
 from .api import ModelBundle
 
@@ -284,6 +285,31 @@ def sparsity_plan(cfg: ArchConfig, shapes: dict) -> SparsityPlan:
                     keep=keep_count(kh * kw * cin, hp.keep_rate, 8),
                     stack_ndims=0))
     return SparsityPlan(rules + tuple(s_rules))
+
+
+def shrink_config(cfg: ArchConfig, plan: SparsityPlan,
+                  budgets: dict) -> ArchConfig:
+    """ArchConfig of the physically-shrunk ResNet: per-stage stream and
+    internal widths (and the stem) are read off the coupling classes that
+    slice the corresponding conv axes — name-agnostic, so merged classes
+    (identity-skip unions, the stem joining stage 0) resolve correctly.
+    Channel sets not covered by any rule keep their full width."""
+    stem_w, outs, cmids = _widths(cfg)
+
+    def width(key, axis, default):
+        r = compacting_rule(plan, key, axis)
+        return int(budgets[r.name]) * r.group_size if r is not None \
+            else default
+
+    new_stem = width("stem", 3, stem_w)
+    new_outs, new_cmids = [], []
+    last_conv = "conv3" if cfg.cnn_bottleneck else "conv2"
+    for si, blocks in enumerate(cfg.cnn_blocks):
+        new_cmids.append(width(f"layer{si}/b0/conv1", 3, cmids[si]))
+        new_outs.append(width(f"layer{si}/b{blocks - 1}/{last_conv}", 3,
+                              outs[si]))
+    return cfg.replace(cnn_stem=new_stem, cnn_outs=tuple(new_outs),
+                       cnn_cmid=tuple(new_cmids))
 
 
 def build(cfg: ArchConfig) -> ModelBundle:

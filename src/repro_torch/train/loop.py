@@ -9,15 +9,19 @@ blocks every ``RunConfig.metrics_every`` rounds (and once at the end), so
 drift freezing takes effect at the next drain while ``t_freeze`` freezing
 is host-known and exact.
 
-Communication accounting is derived from which round (dynamic or frozen)
-ran: the top boundary's wire codec ``wire_bytes`` over the compacted or
-full payload shapes, plus the Phase-3 mask-agreement bytes in dynamic
-rounds.
+Communication accounting is derived from which round (dynamic, frozen or
+reconfigured) ran: the top boundary's wire codec ``wire_bytes`` over the
+compacted or full payload shapes, plus the Phase-3 mask-agreement bytes in
+dynamic rounds.
+
+With ``RunConfig.reconfig``, once masks have stayed frozen for
+``HsadmmConfig.reconfig_patience`` rounds the loop drains, migrates the whole state
+onto the budget-B model (``Engine.reconfigure``) and runs the frozen
+round of the reconfigured engine from then on.
 
 Options that later slices of the port bring (checkpoints, fault-tolerance
-policies, physical reconfiguration, automatic wire selection, compiled-HLO
-statistics, overlapped rounds, the per-step dispatch path) raise
-``NotImplementedError``.
+policies, automatic wire selection, compiled-HLO statistics, overlapped
+rounds, the per-step dispatch path) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,7 +41,9 @@ from .engine import Engine
 @dataclass(frozen=True)
 class RunConfig:
     """Everything one training run needs beyond the engine itself (the
-    reference's fields; see ``repro.train.loop.RunConfig``)."""
+    reference's fields, see ``repro.train.loop.RunConfig``, less its
+    ``reconfig_patience`` override: the patience is
+    ``HsadmmConfig.reconfig_patience``)."""
 
     outer_iters: int
     shape: ShapeConfig
@@ -58,7 +64,6 @@ class RunConfig:
     wire_auto: bool = False
     staleness: Optional[int] = None
     reconfig: bool = False
-    reconfig_patience: Optional[int] = None
     log: Optional[Callable] = print
 
 
@@ -72,12 +77,23 @@ class TrainReport:
     comm_bytes_dense_equiv: list = field(default_factory=list)
     wall_times: list = field(default_factory=list)
     evals: list = field(default_factory=list)
-    # which round ran: "dynamic" | "frozen"
+    # which round ran: "dynamic" | "frozen" | "reconfigured" (the frozen
+    # round of the reconfigured engine, on shrunk shapes)
     executables: list = field(default_factory=list)
     frozen_at: Optional[int] = None
+    # first round run on the reconfigured engine (None if the run never
+    # physically reconfigured)
+    reconfigured_at: Optional[int] = None
+    # host seconds of the state migration, device work included (it ends
+    # in a synchronize); excluded from wall_times
+    reconfig_seconds: Optional[float] = None
     outer_iters: int = 0
-    # codec spec per level boundary the consensus routed through
+    # codec spec per level boundary the consensus routed through, before
+    # and after a physical reconfiguration
     wire_map: Optional[list] = None
+    wire_map_reconfigured: Optional[list] = None
+    # the engine that ran the LAST round (the reconfigured one after a
+    # reconfiguration)
     final_engine: Optional[object] = field(default=None, repr=False)
 
 
@@ -113,7 +129,6 @@ def round_comm_bytes(engine: Engine) -> tuple[int, int, int]:
 _LATER = {
     "ckpt_dir": "checkpointing",
     "ft_policy": "fault-tolerance policies",
-    "reconfig": "physical reconfiguration",
     "wire_auto": "automatic wire selection",
     "hlo_stats": "collective statistics",
 }
@@ -153,6 +168,7 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
     it = prefetch(superbatches(batches(stream), E))
     round_dyn = engine.round_step_fn(frozen=False)
     round_frz = engine.round_step_fn(frozen=True)
+    rc_engine = None   # the reconfigured engine once the migration ran
 
     state = engine.init_state_fn()(run.seed)
     dense_eq_b, dyn_b, frz_b = round_comm_bytes(engine)
@@ -207,10 +223,36 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
         t_block = time.perf_counter()
 
     for k in range(run.outer_iters):
+        if run.reconfig and frozen and rc_engine is None \
+                and report.frozen_at is not None \
+                and k - report.frozen_at >= hp.reconfig_patience:
+            # masks stable for `patience` frozen rounds: drain, then move
+            # the whole state onto budget-B shapes (the full-shape state
+            # is freed when `state` is rebound)
+            drain()
+            if stop:
+                break   # converged in the drained block
+            t_r = time.perf_counter()
+            rc_engine, state = engine.reconfigure(state)
+            if engine.device.type == "cuda":
+                torch.cuda.synchronize(engine.device)
+            report.wire_map_reconfigured = \
+                [c.name for c in rc_engine.spec.codecs]
+            round_frz = rc_engine.round_step_fn(frozen=True)
+            _, _, frz_b = round_comm_bytes(rc_engine)
+            report.reconfigured_at = k
+            report.reconfig_seconds = time.perf_counter() - t_r
+            # the migration is host-timed and kept out of the round walls
+            host_overhead += report.reconfig_seconds
+            if log:
+                log(f"[loop] physically reconfigured at outer iter {k}: "
+                    f"frozen-round payload {frz_b / 1e6:.2f}MB/round")
         was_frozen = frozen
         state, m = (round_frz if frozen else round_dyn)(state, next(it), eta)
         pending.append((k, was_frozen, m))
-        report.executables.append("frozen" if was_frozen else "dynamic")
+        report.executables.append(
+            "reconfigured" if (was_frozen and rc_engine is not None)
+            else ("frozen" if was_frozen else "dynamic"))
         report.comm_bytes_internode.append(frz_b if was_frozen else dyn_b)
         report.comm_bytes_dense_equiv.append(dense_eq_b)
         report.outer_iters = k + 1
@@ -230,5 +272,5 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
         if stop:
             break
     drain()
-    report.final_engine = engine
+    report.final_engine = rc_engine if rc_engine is not None else engine
     return state, report

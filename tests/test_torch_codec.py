@@ -15,7 +15,8 @@ from repro_torch import comm as tcomm  # noqa: E402
 
 from torch_port_helpers import jax_reference, to_np  # noqa: E402
 
-SPECS = ["dense", "q8", "compact", "compact+q8", "compact+dense", "q8+compact"]
+SPECS = ["dense", "q8", "compact", "compact+q8", "compact+dense", "q8+compact",
+         "q4", "compact+q4"]
 SHAPES = [(), (7,), (1, 1), (64, 10), (3, 3, 64, 128), (2, 5, 7)]
 
 
@@ -49,7 +50,7 @@ def test_spec_errors():
         tcomm.get_codec("")
     with pytest.raises(ValueError):
         tcomm.compose("q8", "dense")
-    for later in ("q4", "topk:0.01", "compact+q4"):
+    for later in ("topk:0.01", "compact+topk:0.01"):
         with pytest.raises(NotImplementedError, match="later slice"):
             tcomm.get_codec(later)
     with pytest.raises(ValueError):

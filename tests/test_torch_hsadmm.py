@@ -1,7 +1,7 @@
 """Differential tests of the port's H-SADMM round against the JAX
 reference: from one carried-across state, one local step, one dynamic and
-one frozen consensus step, and one whole round, for a dense and a
-compact+q8 inter-node boundary (resnet-smoke, levels (2, 2)).  The JAX
+one frozen consensus step, and one whole round, for a dense, a compact+q8
+and a compact+q4 inter-node boundary (resnet-smoke, levels (2, 2)).  The JAX
 side quantizes with IEEE division of the scale, as the port does (see
 ``torch_port_helpers``)."""
 import dataclasses
@@ -32,7 +32,7 @@ from torch_port_helpers import (assert_tree_close, jax_reference, np_flat,  # no
 RTOL, ATOL = 1e-5, 1e-6
 LEVELS = ConsensusSpec(levels=(2, 2), compact_from_level=1)
 HP = HsadmmConfig(rho1=1e-3, rho2=1e-4, local_steps=2, t_freeze=2)
-WIRES = ["dense", "compact+q8"]
+WIRES = ["dense", "compact+q8", "compact+q4"]
 ETA = 1e-2
 
 

@@ -142,8 +142,12 @@ def test_quantize_rows_any_rank_matches_jitted_shim(shape):
 
 def test_launch_counts_do_not_move_on_the_cpu():
     ops.reset_launch_counts()
-    ops.prox_sgd_update(*[torch.ones(4, 8)] * 5, torch.tensor(0.1), 1e-2)
-    ops.quantize_rows(torch.ones(4, 8))
-    assert ops.launch_counts() == {"fused_prox_sgd": 0,
-                                   "fused_prox_sgd_dyn": 0,
-                                   "quantize_rows": 0}
+    x, idx = torch.ones(4, 8), torch.arange(4)
+    ops.prox_sgd_update(*[x] * 5, torch.tensor(0.1), 1e-2)
+    ops.quantize_rows(x)
+    ops.unpack_dequantize_q4(*ops.quantize_pack_q4(x), 8)
+    ops.scatter_dequantize_q4(*ops.gather_quantize_q4(x, idx), idx, 8)
+    assert ops.launch_counts() == {
+        "fused_prox_sgd": 0, "fused_prox_sgd_dyn": 0, "quantize_rows": 0,
+        "quantize_pack_q4": 0, "gather_quantize_q4": 0,
+        "unpack_gather_dequantize_q4": 0}

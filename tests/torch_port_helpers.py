@@ -8,9 +8,10 @@ Two known facts about the JAX reference on the CPU shape these helpers:
   jnp update — the same math as the shim's own fallback.
 * The jitted ``ops.quantize_rows`` computes its scale as ``max * (1/127)``
   while the eager reference divides; the two can differ by one ulp, and
-  a q value can then flip by one step.  The port divides, so its
-  comparisons patch in a quantizer with the eager reference's division
-  that ``jit`` cannot rewrite.
+  a q value can then flip by one step.  The q4 quantizers
+  (``ops.quantize_pack_q4``, ``ops.gather_quantize_q4``) do the same with
+  ``max / 7``.  The port divides, so its comparisons patch in quantizers
+  with the eager reference's division that ``jit`` cannot rewrite.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 
 
 def plain_fused_dyn(theta, g, z, u, mom, rho_col, eta, *, momentum, **_):
@@ -45,6 +47,30 @@ def ieee_quantize_rows(x, levels=127):
     return q.reshape(shape), s.reshape(jops._scale_shape(shape))
 
 
+def _ieee_q4(x2):
+    """(R, C) -> the q4 encode of ``ref.quantize_pack_q4_ref`` with its
+    ``/ 7`` behind an optimization barrier."""
+    x2 = x2.astype(jnp.float32)
+    lv = jax.lax.optimization_barrier(jnp.float32(7.0))
+    s = jnp.max(jnp.abs(x2), axis=1, keepdims=True) / lv + 1e-30
+    q = jnp.clip(jnp.round(x2 / s), -7, 7).astype(jnp.int32)
+    return jref.pack_q4_ref(q), s
+
+
+def ieee_quantize_pack_q4(x):
+    """``ops.quantize_pack_q4`` with the eager reference's division."""
+    shape = x.shape
+    R, C = jops._rc(shape)
+    p, s = _ieee_q4(x.reshape(R, C))
+    p_shape = (shape[:-1] if len(shape) >= 1 else ()) + ((C + 1) // 2,)
+    return p.reshape(p_shape), s.reshape(jops._scale_shape(shape))
+
+
+def ieee_gather_quantize_q4(x, idx):
+    """``ops.gather_quantize_q4`` with the eager reference's division."""
+    return _ieee_q4(jnp.take(x, idx.astype(jnp.int32), axis=1))
+
+
 @contextlib.contextmanager
 def jax_reference(ieee_quantize: bool = False):
     """Patch the JAX package for CPU reference runs (see module doc)."""
@@ -52,6 +78,8 @@ def jax_reference(ieee_quantize: bool = False):
         mp.setattr(jops, "_fused_dyn", plain_fused_dyn)
         if ieee_quantize:
             mp.setattr(jops, "quantize_rows", ieee_quantize_rows)
+            mp.setattr(jops, "quantize_pack_q4", ieee_quantize_pack_q4)
+            mp.setattr(jops, "gather_quantize_q4", ieee_gather_quantize_q4)
         yield
 
 
