@@ -16,10 +16,11 @@ Registered codecs: ``dense`` (param-dtype payloads, the paper), ``q8``
 exchange, f32 accumulation), ``q4`` (packed 4-bit, two channels per
 byte, through the hand-written q4 kernels; nibble-plane ring) and the
 ``compact`` marker, which composes with one element codec
-(``compact+q8``, ``compact+q4``).  ``topk:<rate>`` waits for a later
-slice, and so do the encode/decode pairs of ``dense`` and ``q8``, which
-need the gather and q8 dequantize kernels: they raise
-``NotImplementedError``.
+(``compact+q8``, ``compact+q4``).  The encode/decode pairs run on the
+hand-written gather kernels: ``dense`` gathers and zero-fills
+(``gather_groups``), ``q8`` fuses the gather with its quantizer and
+dequantizer (``gather_quantize``/``gather_dequantize``).  ``topk:<rate>``
+waits for a later slice and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -99,20 +100,27 @@ class WireCodec:
 
     def encode(self, leaf):
         """Leaf -> wire payload (anything ``decode`` can invert)."""
-        raise _unported(self.name, "encode")
+        return leaf
 
     def decode(self, payload, like=None):
-        raise _unported(self.name, "decode")
+        return payload
 
     def encode_compact(self, leaf2d, idx):
         """Kept-column gather along the minor axis of an (R, C) leaf fused
-        with this codec's encode (the §4.4 packing)."""
-        raise _unported(self.name, "encode_compact")
+        with this codec's encode (the §4.4 packing).  Quantizing codecs
+        override it with one fused kernel; the base gathers (one launch of
+        the gather kernel) and encodes the result."""
+        from ..kernels import ops
+        return self.encode(ops.gather_rows(leaf2d, idx))
 
     def decode_expand(self, payload, idx, full: int, like=None):
         """Inverse of :meth:`encode_compact`: decode + zero-fill of the
-        dropped channels -> (R, full)."""
-        raise _unported(self.name, "decode_expand")
+        dropped channels -> (R, full), a gather by the inverse index from
+        the decoded buffer padded by one zero column (no scatter)."""
+        from ..kernels import ops, ref
+        dec = self.decode(payload, like=like)
+        out = ops.gather_rows(*ref.expand_operands(dec, idx, full))
+        return out.to(like.dtype) if like is not None else out
 
     def init_state(self, tree):
         """Zero error-feedback state for one boundary payload (None for
@@ -128,12 +136,6 @@ class WireCodec:
     def wire_bytes(self, leaf_shape, dtype) -> int:
         """Bytes ONE group member puts on the wire for one payload leaf."""
         return leaf_bytes(leaf_shape, dtype)
-
-
-def _unported(name: str, method: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name}.{method} is not ported yet: it comes in a later slice of "
-        "the PyTorch port")
 
 
 class DenseCodec(WireCodec):
@@ -153,10 +155,33 @@ class Q8Codec(WireCodec):
     member's leaf is quantized per row of its (R, C) view (the
     hand-written ``quantize_rows`` kernel, one launch per leaf), exchanged
     around a ring of shifts over the leading dim, and dequant-accumulated
-    in f32 in ring order — own buffer first, then each shift by one."""
+    in f32 in ring order — own buffer first, then each shift by one.  The
+    encode/decode pairs are single fused passes: ``gather_quantize`` for
+    the compact encode, ``gather_dequantize`` for the decode (identity
+    index) and the decode with zero-fill (inverse index)."""
 
     name = "q8"
     levels = 127
+
+    def encode(self, leaf):
+        from ..kernels import ops
+        return ops.quantize_rows(leaf, levels=self.levels)
+
+    def decode(self, payload, like=None):
+        from ..kernels import ops
+        q, scale = payload
+        out = ops.dequantize_rows(q, scale)
+        return out.to(like.dtype) if like is not None else out
+
+    def encode_compact(self, leaf2d, idx):
+        from ..kernels import ops
+        return ops.gather_quantize(leaf2d, idx, levels=self.levels)
+
+    def decode_expand(self, payload, idx, full, like=None):
+        from ..kernels import ops
+        q, scale = payload
+        out = ops.scatter_dequantize(q, scale, idx, full)
+        return out.to(like.dtype) if like is not None else out
 
     def group_reduce(self, tree, g, w=None, state=None):
         from ..kernels import ops

@@ -5,7 +5,9 @@ dicts (and lists) of numpy arrays, so this module imports nothing of JAX.
 Leaves map one to one onto the port's flat ``{"/"-joined key: tensor}``
 dicts with the same keys, shapes and dtypes, except mask indices, which
 become int64 (PyTorch's index type).  Both packages then compute on the
-same numbers.
+same numbers.  Like every entry point of the port, each function puts
+its tensors on the card unless the caller asks for the CPU
+(``device="cpu"``).
 
 A RECONFIGURED JAX state (budget-B shapes, its migrated masks) converts
 the same way; :func:`masks_from_jax` carries the frozen full-shape masks
@@ -16,6 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .device import resolve_device
 
 
 def _flat(tree: dict, prefix: str = "") -> dict:
@@ -33,23 +37,26 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True)).to(device)
 
 
-def params_from_jax(tree: dict, device="cpu") -> dict:
+def params_from_jax(tree: dict, device=None) -> dict:
     """Nested JAX parameter tree (numpy leaves) -> port flat params."""
+    device = resolve_device(device)
     return {k: _tensor(v, device) for k, v in _flat(tree).items()}
 
 
-def masks_from_jax(masks: dict, device="cpu") -> dict:
+def masks_from_jax(masks: dict, device=None) -> dict:
     """JAX per-rule mask state ``{rule: {idx, valid, mask, drift}}`` (numpy
     leaves) -> the port's, with int64 indices."""
+    device = resolve_device(device)
     return {rule: {f: _tensor(a, device).long() if f == "idx"
                    else _tensor(a, device) for f, a in m.items()}
             for rule, m in masks.items()}
 
 
-def state_from_jax(state: dict, device="cpu") -> dict:
+def state_from_jax(state: dict, device=None) -> dict:
     """JAX H-SADMM state (numpy leaves), full-shape or reconfigured ->
     port state: theta/mom/u, the z/v/rho lists, per-rule masks, weights
     and the round counter k."""
+    device = resolve_device(device)
     out = {}
     for name, v in state.items():
         if name in ("theta", "mom", "u"):

@@ -13,6 +13,11 @@ reconfiguration path: once masks freeze, the training state moves onto
 budget-B shapes and the round runs over the smaller dense model.
 ``shrunk_plan`` builds the matching all-kept plan.  The port has no
 stateful wire codec yet, so there is no error-feedback state to migrate.
+
+Every compaction and expansion of a payload or state leaf is one launch
+of the hand-written gather kernel on the card (``kernels.ops.gather_axis``;
+the plain ``take_along_dim`` on the CPU): the kept groups are copied
+exactly, so the result is the same either way.
 """
 from __future__ import annotations
 
@@ -21,48 +26,37 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops, ref
 from .coupling import validate_compaction_order
 from .sparsity import GroupRule, SparsityPlan, channel_idx, top_k_indices
 
 
-def _bcast_idx(idx, x_ndim: int, ax: int, stack_ndims: int, offset: int):
-    """Reshape (*stack, B) idx to broadcast along axis ``ax`` of x."""
-    shape = [1] * x_ndim
-    for i in range(stack_ndims):
-        shape[offset + i] = idx.shape[i]
-    shape[ax] = idx.shape[-1]
-    return idx.reshape(shape)
+def _global_idx(idx, C: int, shards: int):
+    """Kept indices of a balanced rule, (*stack, shards, B/shards) local to
+    each of the ``shards`` blocks of a C-wide axis -> (*stack, B) indices
+    into the whole axis (unchanged for ``shards == 1``)."""
+    if shards == 1:
+        return idx
+    off = torch.arange(shards, dtype=idx.dtype, device=idx.device) \
+        * (C // shards)
+    return (idx + off[:, None]).reshape(idx.shape[:-2] + (-1,))
 
 
 def compact_leaf(x, idx, ax: int, stack_ndims: int, offset: int = 0,
                  shards: int = 1):
-    """Gather kept groups along ``ax``: (..., C, ...) -> (..., B, ...).
+    """Gather kept groups along ``ax``: (..., C, ...) -> (..., B, ...),
+    one launch of the gather kernel (``kernels.ops.gather_axis``); the
+    ``stack_ndims`` dims of ``idx`` before B are x's axes from
+    ``offset`` on.
 
     shards > 1 (balanced rules): ``idx`` is (*stack, shards, B/shards) with
     block-local indices into the (shards, C/shards) split of the axis.
     """
-    if shards == 1:
-        return torch.take_along_dim(
-            x, _bcast_idx(idx, x.ndim, ax, stack_ndims, offset), dim=ax)
-    C = x.shape[ax]
-    xb = x.reshape(x.shape[:ax] + (shards, C // shards) + x.shape[ax + 1:])
-    shape = [1] * xb.ndim
-    for i in range(stack_ndims):
-        shape[offset + i] = idx.shape[i]
-    shape[ax] = shards
-    shape[ax + 1] = idx.shape[-1]
-    c = torch.take_along_dim(xb, idx.reshape(shape), dim=ax + 1)
-    return c.reshape(x.shape[:ax] + (-1,) + x.shape[ax + 1:])
-
-
-def _inverse_idx(idx, full: int):
-    """(..., B) kept indices -> (..., full) positions into the compact
-    buffer, with ``B`` marking dropped groups (points at the zero pad)."""
-    B = idx.shape[-1]
-    inv = torch.full(idx.shape[:-1] + (full,), B, dtype=idx.dtype,
-                     device=idx.device)
-    src = torch.arange(B, dtype=idx.dtype, device=idx.device).expand(idx.shape)
-    return inv.scatter(-1, idx, src)
+    gidx = _global_idx(idx, x.shape[ax], shards)
+    if gidx.ndim - 1 != stack_ndims:
+        raise ValueError(f"compact_leaf: index of shape {tuple(idx.shape)} "
+                         f"for {stack_ndims} stack dims and {shards} shards")
+    return ops.gather_axis(x, gidx, ax, offset)
 
 
 def _pad_one(c, ax: int):
@@ -70,28 +64,22 @@ def _pad_one(c, ax: int):
     return F.pad(c, [0, 0] * (c.ndim - 1 - ax) + [0, 1])
 
 
+def _expand(c, inv, ax: int, offset: int):
+    return ops.gather_axis(_pad_one(c, ax), inv, ax, offset)
+
+
+def _inverse(idx, full: int, shards: int):
+    return ref.inverse_index(_global_idx(idx, full, shards), full)
+
+
 def expand_leaf(c, idx, ax: int, full: int, stack_ndims: int,
                 offset: int = 0, shards: int = 1):
     """Zero-fill recovery: (..., B, ...) -> (..., C, ...) (paper §4.4.3),
-    as an inverse-permutation gather from a zero-padded compact buffer: a
-    scatter into the big tensor would need a full-size index tensor; the
-    inverse map is built by a scatter on the tiny (stack, C) index array."""
-    if shards == 1:
-        inv = _inverse_idx(idx, full)
-        return torch.take_along_dim(
-            _pad_one(c, ax), _bcast_idx(inv, c.ndim, ax, stack_ndims, offset),
-            dim=ax)
-    B = c.shape[ax]
-    cb = c.reshape(c.shape[:ax] + (shards, B // shards) + c.shape[ax + 1:])
-    cp = _pad_one(cb, ax + 1)
-    inv = _inverse_idx(idx, full // shards)          # (*stack, sh, C/s)
-    shape = [1] * cb.ndim
-    for i in range(stack_ndims):
-        shape[offset + i] = inv.shape[i]
-    shape[ax] = shards
-    shape[ax + 1] = inv.shape[-1]
-    out = torch.take_along_dim(cp, inv.reshape(shape), dim=ax + 1)
-    return out.reshape(c.shape[:ax] + (full,) + c.shape[ax + 1:])
+    as an inverse-permutation gather from the compact buffer padded by one
+    zero group: a scatter into the big tensor would need a full-size index
+    tensor; the inverse map is built by a scatter on the tiny (stack, C)
+    index array."""
+    return _expand(c, _inverse(idx, full, shards), ax, offset)
 
 
 def compact_params(params: dict, plan: SparsityPlan, idxs: dict,
@@ -103,7 +91,8 @@ def compact_params(params: dict, plan: SparsityPlan, idxs: dict,
     for rule in plan.rules:
         if not rule.compactable:
             continue  # projection-only rule (paper slices filter/channel only)
-        idx = channel_idx(rule, idxs[rule.name])
+        # int32 once per rule: the index the gather kernel reads
+        idx = channel_idx(rule, idxs[rule.name]).to(torch.int32)
         for la in rule.all_leaves:
             params[la.key] = compact_leaf(params[la.key], idx,
                                           la.axes[0] + offset,
@@ -121,13 +110,11 @@ def expand_params(params: dict, plan: SparsityPlan, idxs: dict,
     for rule in reversed(plan.rules):
         if not rule.compactable:
             continue
-        idx = channel_idx(rule, idxs[rule.name])
-        full = fulls[rule.name] * rule.group_size
+        inv = _inverse(channel_idx(rule, idxs[rule.name]),
+                       fulls[rule.name] * rule.group_size, rule.shards)
         for la in reversed(rule.all_leaves):
-            params[la.key] = expand_leaf(params[la.key], idx,
-                                         la.axes[0] + offset, full,
-                                         rule.stack_ndims, offset,
-                                         rule.shards)
+            params[la.key] = _expand(params[la.key], inv,
+                                     la.axes[0] + offset, offset)
     return params
 
 

@@ -11,10 +11,13 @@ Port of ``repro/core/sparsity.py``.  Parameters are FLAT dicts
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Mapping
 
 import torch
+
+from ..kernels import ops
 
 Params = dict
 
@@ -110,18 +113,20 @@ def group_scores(params: Mapping, rule: GroupRule, offset: int = 0):
     """Aggregated squared-Frobenius group magnitudes, shape
     (*lead, *stack, groups).  ``offset`` leading consensus dims are kept
     (scores stay per-worker); only scored ``leaves`` vote; ``group_size >
-    1`` pools each contiguous channel block into one score."""
+    1`` pools each contiguous channel block into one score.  Each leaf's
+    sums of squares are one launch of the group-norm kernel on the card
+    (``kernels.ops.group_norms_sq``), read through the moved view."""
     total = None
     dst = offset + rule.stack_ndims
     for la in rule.leaves:
         x = params[la.key]
         axes = tuple(a + offset for a in la.axes)
         x = torch.movedim(x, axes, tuple(range(dst, dst + len(axes))))
-        reduce_axes = tuple(range(dst + len(axes), x.ndim))
-        s = torch.square(x.to(torch.float32))
-        if reduce_axes:
-            s = torch.sum(s, dim=reduce_axes)
-        s = s.reshape(s.shape[:dst] + (-1,))       # (*lead, *stack, C)
+        lead = tuple(x.shape[:dst])
+        v = x.reshape((math.prod(lead),
+                       math.prod(x.shape[dst:dst + len(axes)]))
+                      + tuple(x.shape[dst + len(axes):]))
+        s = ops.group_norms_sq(v).reshape(lead + (-1,))  # (*lead, *stack, C)
         if rule.group_size > 1:                    # pool channel blocks
             s = s.reshape(s.shape[:-1] + (rule.groups, rule.group_size))
             s = torch.sum(s, dim=-1)

@@ -27,21 +27,34 @@ def superbatches(it: Iterator, e: int) -> Iterator:
 
 
 def prefetch(it: Iterator, size: int = 2) -> Iterator:
-    """Background-thread prefetch (double buffering by default)."""
+    """Background-thread prefetch (double buffering by default).  Closing
+    the generator (``close()``, or dropping it) stops the thread, so the
+    batches it holds on the device are freed with it."""
     q: queue.Queue = queue.Queue(maxsize=size)
     stop = object()
+    closed = threading.Event()
 
     def worker():
         try:
             for item in it:
+                if closed.is_set():
+                    return
                 q.put(item)
         finally:
             q.put(stop)
 
     t = threading.Thread(target=worker, daemon=True)
     t.start()
-    while True:
-        item = q.get()
-        if item is stop:
-            return
-        yield item
+    try:
+        while True:
+            item = q.get()
+            if item is stop:
+                return
+            yield item
+    finally:
+        closed.set()
+        while t.is_alive():       # unblock a put on a full queue
+            try:
+                q.get(timeout=0.05)
+            except queue.Empty:
+                pass

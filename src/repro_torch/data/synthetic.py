@@ -13,6 +13,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 @dataclass(frozen=True)
 class SyntheticImages:
@@ -22,7 +24,7 @@ class SyntheticImages:
     batch: int           # per worker
     workers: int
     noise: float = 0.7
-    device: str = "cpu"
+    device: str = "cuda"
 
     def batch_at(self, step: int) -> dict:
         """The batch of ``step`` (f32 NHWC images and i32 labels with a
@@ -43,10 +45,12 @@ class SyntheticImages:
                 .to(self.device)}
 
 
-def make_stream(cfg, shape, workers: int, device="cpu"):
+def make_stream(cfg, shape, workers: int, device=None):
+    """The synthetic stream of ``cfg``; its batches land on ``device`` (the
+    card unless the caller asks for the CPU)."""
     if cfg.family != "cnn":
         raise NotImplementedError(
             f"no synthetic stream for family {cfg.family!r} in the port yet")
     return SyntheticImages(cfg.img_size, cfg.n_classes,
                            max(shape.global_batch // workers, 1), workers,
-                           device=str(device))
+                           device=str(resolve_device(device)))

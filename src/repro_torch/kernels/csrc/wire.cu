@@ -1,5 +1,6 @@
-// The wire-format kernels: per-row symmetric quantization (q8), and the
-// packed 4-bit format (q4) with its fused gather and unpack/dequantize.
+// The wire-format kernels: per-row symmetric quantization (q8) with its
+// fused gather+quantize and gather+dequantize, and the packed 4-bit format
+// (q4) with its fused gather and unpack/dequantize.
 //
 // quantize_rows replaces the TPU kernel of src/repro/kernels/wire.py.  On
 // the (R, C) view of a payload leaf, for each row r:
@@ -22,8 +23,8 @@
 // scale NaN (fmaxf would drop it), and a quotient that is NaN (from a NaN
 // scale, or inf / inf) stores 0, as XLA's float-to-int8 convert does.
 //
-// The three q4 kernels below are described where they are defined.  Every
-// entry point has a plain C interface (loaded with ctypes), launches on
+// The q8 gather kernels and the three q4 kernels below are described where
+// they are defined.  Every entry point has a plain C interface (loaded with ctypes), launches on
 // the caller's stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -36,6 +37,13 @@ constexpr int kRowsPerBlock = 8;
 // max that propagates NaN, as torch.amax and jnp.max do
 __device__ __forceinline__ float nan_max(float m, float a) {
   return (a > m || a != a) ? a : m;
+}
+
+// one q8 value: rint(v / sc) clamped to [-levels, levels]; a NaN quotient
+// stores 0, as XLA's float-to-int8 convert does
+__device__ __forceinline__ int8_t q8_value(float v, float sc, float levels) {
+  const float r = rintf(__fdiv_rn(v, sc));
+  return r != r ? (int8_t)0 : (int8_t)(int)fminf(fmaxf(r, -levels), levels);
 }
 
 __global__ void quantize_rows_kernel(const float* __restrict__ x,
@@ -52,12 +60,62 @@ __global__ void quantize_rows_kernel(const float* __restrict__ x,
     m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
   const float sc = __fadd_rn(__fdiv_rn(m, levels), 1e-30f);
   int8_t* qr = q + row * C;
-  for (int64_t c = lane; c < C; c += 32) {
-    const float v = rintf(__fdiv_rn(__ldg(xr + c), sc));
-    qr[c] = v != v ? (int8_t)0
-                   : (int8_t)(int)fminf(fmaxf(v, -levels), levels);
-  }
+  for (int64_t c = lane; c < C; c += 32)
+    qr[c] = q8_value(__ldg(xr + c), sc, levels);
   if (lane == 0) s[row] = sc;
+}
+
+// Replaces gather_quantize of src/repro/kernels/wire.py: the q8 encode of
+// x[:, idx] (x (R, C) f32, idx (B,) int32 in [0, C)) -> q (R, B) int8, s
+// (R, 1) f32, the compact+q8 encode in one pass without materializing the
+// gathered rows.  The arithmetic is quantize_rows's (IEEE division, rintf,
+// NaN-propagating abs-max, a NaN quotient stores 0), so the result equals
+// the plain version (gather, then quantize) bit for bit.  Bytes bound; one
+// warp per row, the row's kept columns read twice (the second time from
+// L1/L2), each thread reading the indices of its own columns (cached by
+// __ldg; every row of the block reads the same ones).
+__global__ void gather_quantize_kernel(const float* __restrict__ x,
+                                       const int32_t* __restrict__ idx,
+                                       int8_t* __restrict__ q,
+                                       float* __restrict__ s, int64_t R,
+                                       int64_t C, int64_t B, float levels) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= R) return;
+  const float* xr = x + row * C;
+  float m = 0.f;
+  for (int64_t b = lane; b < B; b += 32)
+    m = nan_max(m, fabsf(__ldg(xr + __ldg(idx + b))));
+  for (int off = 16; off > 0; off >>= 1)
+    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  const float sc = __fadd_rn(__fdiv_rn(m, levels), 1e-30f);
+  int8_t* qr = q + row * B;
+  for (int64_t b = lane; b < B; b += 32)
+    qr[b] = q8_value(__ldg(xr + __ldg(idx + b)), sc, levels);
+  if (lane == 0) s[row] = sc;
+}
+
+// Replaces gather_dequantize of src/repro/kernels/wire.py: q (R, Cq) int8,
+// s (R, 1) f32, idx (Cout,) int32 in [0, Cq) -> out (R, Cout) f32 =
+// q[r, idx[j]] * s[r].  With idx = arange(Cq) it is the plain dequantize;
+// with the inverse index of a compact encode into q padded by one zero
+// column, every dropped column reads the zero, which is the zero-fill
+// expansion without a scatter (a NaN or inf scale makes it NaN there, as
+// in the reference).  Bytes bound (one byte read and 4 B written per
+// element); one warp per row, the scale loaded once per row.
+__global__ void gather_dequantize_kernel(const int8_t* __restrict__ q,
+                                         const float* __restrict__ s,
+                                         const int32_t* __restrict__ idx,
+                                         float* __restrict__ out, int64_t R,
+                                         int64_t Cq, int64_t Cout) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= R) return;
+  const int8_t* qr = q + row * Cq;
+  const float sc = __ldg(s + row);
+  float* orow = out + row * Cout;
+  for (int64_t j = lane; j < Cout; j += 32)
+    orow[j] = __fmul_rn((float)__ldg(qr + __ldg(idx + j)), sc);
 }
 
 // ---------------------------------------------------------------------------
@@ -186,6 +244,26 @@ int quantize_rows_f32(const float* x, int8_t* q, float* s, int64_t R,
   quantize_rows_kernel<<<row_blocks(R), 32 * kRowsPerBlock, 0,
                          (cudaStream_t)stream>>>(x, q, s, R, C,
                                                  (float)levels);
+  return (int)cudaGetLastError();
+}
+
+int gather_quantize_f32(const float* x, const int32_t* idx, int8_t* q,
+                        float* s, int64_t R, int64_t C, int64_t B, int levels,
+                        void* stream) {
+  if (R <= 0 || B <= 0) return (int)cudaSuccess;
+  gather_quantize_kernel<<<row_blocks(R), 32 * kRowsPerBlock, 0,
+                           (cudaStream_t)stream>>>(x, idx, q, s, R, C, B,
+                                                   (float)levels);
+  return (int)cudaGetLastError();
+}
+
+int gather_dequantize_f32(const int8_t* q, const float* s, const int32_t* idx,
+                          float* out, int64_t R, int64_t Cq, int64_t Cout,
+                          void* stream) {
+  if (R <= 0 || Cout <= 0) return (int)cudaSuccess;
+  gather_dequantize_kernel<<<row_blocks(R), 32 * kRowsPerBlock, 0,
+                             (cudaStream_t)stream>>>(q, s, idx, out, R, Cq,
+                                                     Cout);
   return (int)cudaGetLastError();
 }
 

@@ -2,6 +2,7 @@
 ``repro/kernels/ops.py``: any-rank operands are viewed as (R, C) with the
 minor axis contiguous (0-D/1-D leaves pad to one row), and the kernel
 wrappers choose the CUDA kernel or, for CPU tensors, the plain version.
+Gathers take indices of any integer dtype and hand the kernels int32.
 """
 from __future__ import annotations
 
@@ -9,9 +10,14 @@ import math
 
 import torch
 
+from . import compact as _compact
 from . import fused_prox_sgd as _prox
+from . import group_norms as _gnorms
 from . import ref as _ref
 from . import wire as _wire
+
+_COUNTERS = (_prox.launches, _compact.launches, _wire.launches,
+             _gnorms.launches)
 
 
 def _rc(shape: tuple) -> tuple[int, int]:
@@ -28,11 +34,11 @@ def _view2d(x, R: int, C: int):
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {**_prox.launches, **_wire.launches}
+    return {k: v for d in _COUNTERS for k, v in d.items()}
 
 
 def reset_launch_counts() -> None:
-    for d in (_prox.launches, _wire.launches):
+    for d in _COUNTERS:
         for k in d:
             d[k] = 0
 
@@ -145,3 +151,118 @@ def scatter_dequantize_q4(p, scale, idx, full: int):
     pp, inv = _ref.expand_operands_q4(p, idx, full)
     return _wire.unpack_gather_dequantize_q4(
         pp, _view2d(scale, p.shape[0], 1), inv)
+
+
+# ------------------------------------------------------------------ #
+# kept-group gathers (kernels/compact.py) and the q8 codec API's
+# fused passes (kernels/wire.py)
+# ------------------------------------------------------------------ #
+
+
+def _idx32(idx):
+    return idx.to(torch.int32).contiguous()
+
+
+def gather_axis(x, idx, ax: int, lead: int = 0):
+    """Gather ``x`` along axis ``ax`` by ``idx`` (*stack, B): the stack
+    dims of ``idx`` are x's axes ``lead .. lead + len(stack) - 1``, all
+    before ``ax``, and each stack slice keeps its own index row.  One
+    launch of the gather kernel on the contiguous (R, C, Q) view around
+    the axis; no axis is moved."""
+    shape = tuple(x.shape)
+    sn = idx.ndim - 1
+    if ax < lead + sn or shape[lead:lead + sn] != tuple(idx.shape[:-1]):
+        raise ValueError(
+            f"gather_axis: index of shape {tuple(idx.shape)} does not stack "
+            f"over axes {lead}..{lead + sn - 1} before axis {ax} of "
+            f"{shape}")
+    B = idx.shape[-1]
+    R = math.prod(shape[:ax])
+    out = _compact.gather_groups(
+        x.contiguous().view(R, shape[ax], math.prod(shape[ax + 1:])),
+        _idx32(idx).reshape(-1, B),
+        slice_rows=math.prod(shape[lead + sn:ax]))
+    return out.view(shape[:ax] + (B,) + shape[ax + 1:])
+
+
+def gather_rows(x, idx):
+    """Plain 2-D kept-gather: x (R, C), idx (B,) -> (R, B)."""
+    return gather_axis(x, idx, 1)
+
+
+def compact_groups(x, idx):
+    """Pack kept groups: x (..., C, K) gathered along axis -2 by idx
+    (B,)."""
+    return gather_axis(x, idx, x.ndim - 2)
+
+
+def expand_groups(c, idx, full: int):
+    """Zero-fill recovery (paper §4.4.3): (..., B, K) -> (..., full, K), a
+    gather by the inverse index from the buffer padded by one zero
+    group."""
+    ax = c.ndim - 2
+    cp = torch.nn.functional.pad(c, (0, 0, 0, 1))
+    return gather_axis(cp, _ref.inverse_index(idx, full), ax)
+
+
+def dequantize_rows(q, scale):
+    """Inverse of :func:`quantize_rows` (f32 out, caller casts): the
+    gather+dequantize kernel with the identity index."""
+    shape = tuple(q.shape)
+    R, C = _rc(shape)
+    out = _wire.gather_dequantize(
+        _view2d(q, R, C), _view2d(scale.to(torch.float32), R, 1),
+        torch.arange(C, dtype=torch.int32, device=q.device))
+    return out.view(shape)
+
+
+def gather_quantize(x, idx, levels: int = 127):
+    """x (R, C), idx (B,): fused kept-group gather + per-row quantize —
+    the compact+q8 encode in one pass -> (q int8 (R, B), scale (R, 1))."""
+    return _wire.gather_quantize(x.to(torch.float32).contiguous(),
+                                 _idx32(idx), levels=levels)
+
+
+def scatter_dequantize(q, scale, idx, full: int):
+    """Fused dequantize + zero-fill expansion: q (R, B) int8 of the kept
+    channels ``idx`` -> f32 (R, full), zeros on the dropped channels,
+    through the operands of :func:`ref.expand_operands`."""
+    qp, inv = _ref.expand_operands(q, idx, full)
+    return _wire.gather_dequantize(
+        qp, scale.to(torch.float32).reshape(-1, 1).contiguous(), inv)
+
+
+# ------------------------------------------------------------------ #
+# squared group norms (kernels/group_norms.py)
+# ------------------------------------------------------------------ #
+
+
+def _coalesce(sizes, strides) -> list[tuple[int, int]]:
+    """(size, stride) dims with the size-1 dims dropped and each dim
+    merged into the next where the two walk memory as one."""
+    dims: list[tuple[int, int]] = []
+    for n, st in zip(sizes, strides):
+        if n == 1:
+            continue
+        if dims and dims[-1][1] == n * st:
+            dims[-1] = (dims[-1][0] * n, st)
+        else:
+            dims.append((n, st))
+    return dims
+
+
+def group_norms_sq(x):
+    """(G, C, *K) of any strides -> (G, C) f32 sums of squares over K.
+    The fan-in dims are merged where memory allows; the kernel reads up to
+    two of them in place (a weight moved to (G, C, K) by a view needs no
+    copy), and a view that keeps more is copied contiguous first."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.to(torch.float32)
+    G, C = x.shape[:2]
+    dims = _coalesce(x.shape[2:], x.stride()[2:]) or [(1, 1)]
+    if len(dims) > 2:
+        x = x.reshape(G, C, -1).contiguous()
+        dims = [(x.shape[2], 1)]
+    sizes, strides = zip(*dims)
+    v = x.as_strided((G, C) + sizes, (x.stride(0), x.stride(1)) + strides)
+    return _gnorms.group_norms_sq(v)

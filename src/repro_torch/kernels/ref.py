@@ -7,6 +7,7 @@ bit."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def fused_prox_sgd_ref(theta, g, z, u, mom, *, eta, rho, momentum):
@@ -33,6 +34,68 @@ def quantize_rows_ref(x, levels=127):
     # float-to-int8 convert does; PyTorch's own cast leaves it undefined
     q = torch.nan_to_num(q, nan=0.0).to(torch.int8)
     return q, s
+
+
+def gather_groups_ref(x, idx, slice_rows: int = 1):
+    """x: (R, C) or (R, C, Q), idx: (B,) or (S, B) -> (R, B) or (R, B, Q),
+    ``out[r, j, q] = x[r, idx[s, j], q]`` with ``s = (r // slice_rows) %
+    S``: the §4.4 packing gather (compaction along the group axis; the
+    zero-fill expansion is the same gather with an inverse index into a
+    zero-padded buffer, :func:`expand_operands`)."""
+    x3 = x if x.ndim == 3 else x[..., None]
+    R, C, Q = x3.shape
+    idx2 = idx.reshape(-1, idx.shape[-1]).long()
+    S, B = idx2.shape
+    x5 = x3.reshape(R // (S * slice_rows), S, slice_rows, C, Q)
+    out = torch.take_along_dim(x5, idx2.reshape(1, S, 1, B, 1), dim=3)
+    out = out.reshape(R, B, Q)
+    return out if x.ndim == 3 else out[..., 0]
+
+
+def gather_quantize_ref(x, idx, levels=127):
+    """x: (R, C), idx: (B,) -> the q8 encode of ``x[:, idx]`` (gather, then
+    :func:`quantize_rows_ref`)."""
+    return quantize_rows_ref(torch.index_select(x, 1, idx.long()), levels)
+
+
+def gather_dequantize_ref(q, s, idx):
+    """q: (R, Cq) int8, s: (R, 1), idx: (Cout,) -> f32 (R, Cout) =
+    ``q[:, idx] * s``."""
+    return torch.index_select(q, 1, idx.long()).to(torch.float32) * s
+
+
+def inverse_index(idx, full):
+    """(..., B) kept indices -> (..., full) int32 positions into the
+    compact buffer padded by one zero slot: position ``idx[b]`` holds b,
+    every dropped position B (the pad)."""
+    B = idx.shape[-1]
+    inv = torch.full(idx.shape[:-1] + (full,), B, dtype=torch.int32,
+                     device=idx.device)
+    src = torch.arange(B, dtype=torch.int32, device=idx.device)
+    return inv.scatter(-1, idx.long(), src.expand(idx.shape))
+
+
+def expand_operands(c, idx, full):
+    """The operands that make a gather the zero-fill expansion of a
+    compact (R, B) buffer with kept channels idx (B,): c padded by one
+    zero column, and :func:`inverse_index`, which points every dropped
+    channel at the pad."""
+    return F.pad(c, (0, 1)), inverse_index(idx, full)
+
+
+def scatter_dequantize_ref(q, s, idx, full):
+    """Inverse of :func:`gather_quantize_ref`: q (R, B), s (R, 1), idx
+    (B,) -> f32 (R, full), channel ``idx[b]`` = q[:, b] * s, the dropped
+    channels 0 (NaN on a row whose scale is NaN or inf)."""
+    qp, inv = expand_operands(q, idx, full)
+    return gather_dequantize_ref(qp, s, inv)
+
+
+def group_norms_sq_ref(x):
+    """x: (G, C, *K) -> f32 (G, C), the sum of squares over the trailing
+    fan-in dims (mask scores, paper §2.1)."""
+    sq = torch.square(x.to(torch.float32))
+    return torch.sum(sq, dim=tuple(range(2, x.ndim))) if x.ndim > 2 else sq
 
 
 def pack_q4_ref(q):

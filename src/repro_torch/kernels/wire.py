@@ -1,7 +1,11 @@
 """Wrappers of the wire-format kernels (``csrc/wire.cu``), the port of
-``repro/kernels/wire.py``'s q8 quantizer and its three q4 kernels:
+``repro/kernels/wire.py``'s three q8 kernels and its three q4 kernels:
 
   * :func:`quantize_rows` — per-row symmetric int8 (the q8 ring);
+  * :func:`gather_quantize` — kept-column gather fused with it
+    (``Q8Codec.encode_compact``);
+  * :func:`gather_dequantize` — gather + dequantize (``Q8Codec.decode``,
+    and with an inverse index into a zero-padded q ``decode_expand``);
   * :func:`quantize_pack_q4` — per-row q4 quantize + nibble pack (the q4
     ring and ``Q4Codec.encode``);
   * :func:`gather_quantize_q4` — kept-column gather fused with it
@@ -13,7 +17,8 @@ Scale granularity is one f32 scale per ROW of the (R, C) view — a
 function of the leaf shape, so ``wire_bytes`` stays analytic.  A tensor
 on the CPU takes the plain version (``kernels/ref.py``); a CUDA tensor
 launches the kernel or raises.  ``launches`` counts launches.  The q8
-gather+quantize and dequantize kernels wait for a later slice.
+gather kernels take int32 indices, as the TPU kernels do; the q4 ones
+int64.
 """
 from __future__ import annotations
 
@@ -23,18 +28,20 @@ import torch
 
 from . import _build, ref
 
-launches = {"quantize_rows": 0, "quantize_pack_q4": 0,
-            "gather_quantize_q4": 0, "unpack_gather_dequantize_q4": 0}
+launches = {"quantize_rows": 0, "gather_quantize": 0, "gather_dequantize": 0,
+            "quantize_pack_q4": 0, "gather_quantize_q4": 0,
+            "unpack_gather_dequantize_q4": 0}
 
-_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 
 def _lib():
     lib = _build.library("wire")
     if lib.quantize_rows_f32.argtypes is None:
         for name, args in (
-                ("quantize_rows_f32", [_P, _P, _P, _I64, _I64, ctypes.c_int,
-                                       _P]),
+                ("quantize_rows_f32", [_P, _P, _P, _I64, _I64, _INT, _P]),
+                ("gather_quantize_f32", [_P] * 4 + [_I64] * 3 + [_INT, _P]),
+                ("gather_dequantize_f32", [_P] * 4 + [_I64] * 3 + [_P]),
                 ("quantize_pack_q4_f32", [_P, _P, _P, _I64, _I64, _P]),
                 ("gather_quantize_q4_f32", [_P] * 4 + [_I64] * 3 + [_P]),
                 ("unpack_gather_dequantize_q4_f32",
@@ -66,13 +73,17 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _levels(what: str, levels: int) -> None:
+    if not 0 < levels <= 127:
+        raise ValueError(f"{what}: levels {levels} outside (0, 127]")
+
+
 def quantize_rows(x, *, levels: int = 127):
     """x: (R, C) float32 -> (q int8 (R, C), scale f32 (R, 1))."""
     if _on_cpu("quantize_rows", x):
         return ref.quantize_rows_ref(x, levels)
     _check("quantize_rows", x, torch.float32, x.device, 2)
-    if not 0 < levels <= 127:
-        raise ValueError(f"quantize_rows: levels {levels} outside (0, 127]")
+    _levels("quantize_rows", levels)
     R, C = x.shape
     q = torch.empty((R, C), dtype=torch.int8, device=x.device)
     s = torch.empty((R, 1), dtype=torch.float32, device=x.device)
@@ -81,6 +92,49 @@ def quantize_rows(x, *, levels: int = 127):
     _build.check(err, "quantize_rows")
     launches["quantize_rows"] += 1
     return q, s
+
+
+def gather_quantize(x, idx, *, levels: int = 127):
+    """x: (R, C) float32, idx: (B,) int32 in [0, C) -> the q8 encode of
+    ``x[:, idx]``: (q int8 (R, B), scale f32 (R, 1))."""
+    if _on_cpu("gather_quantize", x):
+        return ref.gather_quantize_ref(x, idx, levels)
+    _check("gather_quantize", x, torch.float32, x.device, 2)
+    _check("gather_quantize (idx)", idx, torch.int32, x.device, 1)
+    _levels("gather_quantize", levels)
+    R, C = x.shape
+    B = idx.shape[0]
+    q = torch.empty((R, B), dtype=torch.int8, device=x.device)
+    s = torch.empty((R, 1), dtype=torch.float32, device=x.device)
+    err = _lib().gather_quantize_f32(x.data_ptr(), idx.data_ptr(),
+                                     q.data_ptr(), s.data_ptr(), R, C, B,
+                                     levels, _stream(x))
+    _build.check(err, "gather_quantize")
+    launches["gather_quantize"] += 1
+    return q, s
+
+
+def gather_dequantize(q, s, idx):
+    """q: (R, Cq) int8, s: (R, 1) float32, idx: (Cout,) int32 in [0, Cq)
+    -> float32 (R, Cout) = ``q[:, idx] * s``."""
+    if _on_cpu("gather_dequantize", q):
+        return ref.gather_dequantize_ref(q, s, idx)
+    what = "gather_dequantize"
+    _check(what, q, torch.int8, q.device, 2)
+    _check(f"{what} (scale)", s, torch.float32, q.device, 2)
+    _check(f"{what} (idx)", idx, torch.int32, q.device, 1)
+    R, Cq = q.shape
+    if s.shape != (R, 1):
+        raise ValueError(f"{what}: scale of shape {tuple(s.shape)}, "
+                         f"expected ({R}, 1)")
+    Cout = idx.shape[0]
+    out = torch.empty((R, Cout), dtype=torch.float32, device=q.device)
+    err = _lib().gather_dequantize_f32(q.data_ptr(), s.data_ptr(),
+                                       idx.data_ptr(), out.data_ptr(), R, Cq,
+                                       Cout, _stream(q))
+    _build.check(err, what)
+    launches[what] += 1
+    return out
 
 
 def quantize_pack_q4(x):

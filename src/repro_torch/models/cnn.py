@@ -25,6 +25,7 @@ from ..configs.base import ArchConfig
 from ..core.coupling import CouplingGraph
 from ..core.shrinkage import compacting_rule
 from ..core.sparsity import GroupRule, LeafAxis, SparsityPlan, keep_count
+from ..device import resolve_device
 from .api import ModelBundle
 
 
@@ -90,9 +91,11 @@ def param_layout(cfg: ArchConfig) -> list[tuple[str, tuple, int]]:
     return out
 
 
-def init(cfg: ArchConfig, generator: torch.Generator, device="cpu") -> dict:
+def init(cfg: ArchConfig, generator: torch.Generator, device=None) -> dict:
     """Random init drawn from a CPU ``generator`` (so a seed gives the same
-    weights on every device), then moved to ``device``."""
+    weights on every device), then moved to ``device`` (the card unless
+    the caller asks for the CPU)."""
+    device = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
     params = {}
     for key, shape, fan_in in param_layout(cfg):
@@ -185,7 +188,11 @@ def train_loss(cfg: ArchConfig, params, batch):
     logits = forward(cfg, params, batch["images"]).to(torch.float32)
     labels = batch["labels"].long()
     lse = torch.logsumexp(logits, dim=-1)
-    tl = torch.gather(logits, -1, labels[:, None])[..., 0]
+    # the true class's logit as a masked sum, not a gather: the gather's
+    # backward is a scatter-add, which accumulates in no fixed order on the
+    # card; a sum of one logit and zeros is the logit, bit for bit
+    cls = torch.arange(logits.shape[-1], device=logits.device)
+    tl = torch.sum(torch.where(cls == labels[:, None], logits, 0.0), dim=-1)
     # paper Eq. 1: CE; the L2 weight decay is folded into the consensus
     # z-update, so the bare loss here is plain CE.
     return torch.mean(lse - tl)

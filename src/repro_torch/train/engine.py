@@ -16,6 +16,7 @@ introspection wait for later slices of the port.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import torch
@@ -25,18 +26,9 @@ from ..core.hsadmm import (EngineSpec, identity_mask_state, init_state,
                            round_step)
 from ..core.shrinkage import (compact_state, compacting_rule, expand_state,
                               shrunk_plan, shrunk_projection_mask_state)
+from ..device import resolve_device
 from ..models import build, shrink_config
 from ..models.api import ModelBundle
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card; a missing card raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available: the port runs on the card unless "
-            "the caller asks for the CPU (device='cpu')")
-    return dev
 
 
 class Engine:
@@ -48,6 +40,14 @@ class Engine:
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            # the same seed gives the same run: cuDNN's fastest weight-
+            # gradient algorithms accumulate with atomics in an order that
+            # changes from run to run, and autotuning may pick another
+            # algorithm each time; cuBLAS needs a fixed workspace for
+            # deterministic results (read when its handle is created)
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
+            os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         self.bundle = bundle
         self.cfg = bundle.cfg
         self.shape = shape

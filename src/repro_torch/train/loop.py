@@ -272,5 +272,6 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
         if stop:
             break
     drain()
+    it.close()   # stops the prefetch thread and frees the batches it holds
     report.final_engine = rc_engine if rc_engine is not None else engine
     return state, report

@@ -55,7 +55,7 @@ def carried(request):
 
 def test_forward_and_loss_match_reference(carried):
     jb, tb, p_np, batch = carried
-    tp = convert.params_from_jax(p_np)
+    tp = convert.params_from_jax(p_np, device="cpu")
     jl = jcnn.forward(jb.cfg, jax.tree.map(jnp.asarray, p_np),
                       jnp.asarray(batch["images"]))
     tl = tcnn.forward(tb.cfg, tp, torch.from_numpy(batch["images"]))
@@ -76,7 +76,7 @@ def test_grads_match_reference(carried):
     jg = jax.grad(jb.train_loss)(jax.tree.map(jnp.asarray, p_np),
                                  {k: jnp.asarray(v) for k, v in batch.items()})
     tg = torch.func.grad(tb.train_loss)(
-        convert.params_from_jax(p_np),
+        convert.params_from_jax(p_np, device="cpu"),
         {k: torch.from_numpy(v) for k, v in batch.items()})
     ref = np_flat(jg)
     assert set(tg) == set(ref)

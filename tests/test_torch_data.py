@@ -22,7 +22,8 @@ from torch_port_helpers import to_np  # noqa: E402
 def test_superbatches_are_byte_identical(arch, smoke, batch, workers):
     shape = ShapeConfig("t", "train", 32, batch)
     js = j_make_stream(get_config(arch, smoke=smoke), shape, workers)
-    ts = t_make_stream(t_get_config(arch, smoke=smoke), shape, workers)
+    ts = t_make_stream(t_get_config(arch, smoke=smoke), shape, workers,
+                       device="cpu")
     jit = jpipe.superbatches(jpipe.batches(js), 3)
     tit = tpipe.prefetch(tpipe.superbatches(tpipe.batches(ts), 3))
     for _ in range(2):
@@ -45,3 +46,20 @@ def test_stream_tensors_go_to_the_requested_device():
     with pytest.raises(NotImplementedError):
         t_make_stream(t_get_config("resnet18").replace(family="dense"),
                       shape, 2)
+
+
+def test_prefetch_thread_stops_when_closed():
+    """Closing the prefetch generator (as ``train`` does when it returns)
+    ends its thread, which otherwise would hold its queued batches on the
+    device for the life of the process."""
+    import threading
+    shape = ShapeConfig("t", "train", 32, 8)
+    s = t_make_stream(t_get_config("resnet18", smoke=True), shape, 2,
+                      device="cpu")
+    before = threading.active_count()
+    it = tpipe.prefetch(tpipe.superbatches(tpipe.batches(s), 2))
+    first = next(it)
+    assert threading.active_count() == before + 1
+    it.close()
+    assert threading.active_count() == before
+    assert first["images"].shape == (2, 2, 4, 16, 16, 3)

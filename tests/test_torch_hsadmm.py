@@ -70,7 +70,7 @@ def _jnp(tree):
 
 
 def _port_state(st):
-    return convert.state_from_jax(st)
+    return convert.state_from_jax(st, device="cpu")
 
 
 def _assert_state(tst, jst):

@@ -147,7 +147,90 @@ def test_launch_counts_do_not_move_on_the_cpu():
     ops.quantize_rows(x)
     ops.unpack_dequantize_q4(*ops.quantize_pack_q4(x), 8)
     ops.scatter_dequantize_q4(*ops.gather_quantize_q4(x, idx), idx, 8)
+    ops.expand_groups(ops.compact_groups(x[None], idx), idx, 8)
+    ops.scatter_dequantize(*ops.gather_quantize(x, idx), idx, 8)
+    ops.dequantize_rows(*ops.quantize_rows(x))
+    ops.group_norms_sq(x.reshape(2, 2, 8))
     assert ops.launch_counts() == {
-        "fused_prox_sgd": 0, "fused_prox_sgd_dyn": 0, "quantize_rows": 0,
+        "fused_prox_sgd": 0, "fused_prox_sgd_dyn": 0, "gather_groups": 0,
+        "quantize_rows": 0, "gather_quantize": 0, "gather_dequantize": 0,
         "quantize_pack_q4": 0, "gather_quantize_q4": 0,
-        "unpack_gather_dequantize_q4": 0}
+        "unpack_gather_dequantize_q4": 0, "group_norms_sq": 0}
+
+
+# ---------------------------------------------------------------------------
+# the gather kernel's layouts and the squared group norms
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,ax,lead,stack", [
+    ((2, 3, 5, 16), 3, 1, 1),      # stacked rule, minor axis (Q = 1)
+    ((2, 3, 16, 5), 2, 1, 1),      # stacked rule, inner axis (Q = 5)
+    ((4, 3, 3, 8, 12), 3, 1, 0),   # conv input channels (Q = 12)
+    ((7, 10), 1, 0, 0)])           # the (R, C) gather of the TPU kernel
+def test_gather_axis_equals_take_along_axis(shape, ax, lead, stack):
+    rng = np.random.default_rng(4)
+    x = np.asarray(rng.standard_normal(shape), np.float32)
+    sdims = shape[lead:lead + stack]
+    B = shape[ax] // 2 + 1
+    idx = np.stack([rng.choice(shape[ax], B, replace=False)
+                    for _ in range(int(np.prod(sdims)))]).reshape(sdims + (B,))
+    bshape = [1] * len(shape)
+    bshape[lead:lead + stack] = sdims
+    bshape[ax] = B
+    want = np.take_along_axis(x, idx.reshape(bshape), axis=ax)
+    got = ops.gather_axis(torch.from_numpy(x), torch.from_numpy(idx), ax,
+                          lead)
+    np.testing.assert_array_equal(to_np(got), want)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (4, 8, 1), (3, 16, 9),
+                                   (2, 5, 600), (4, 64, 72)])
+def test_group_norms_sq_equals_reference(shape):
+    x = _quant_input(shape, 3)
+    want = jops.group_norms_sq(jnp.asarray(x))
+    got = ops.group_norms_sq(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("ax", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group_norms_sq_reads_moved_views(ax, dtype):
+    """A stacked HWIO weight moved to (G, C, ...) by a view, as the mask
+    scores move it: every channel axis, without a contiguous copy on the
+    port's side."""
+    w = np.asarray(np.random.default_rng(ax).standard_normal(
+        (4, 3, 3, 16, 24)), np.float32)
+    jw = jnp.moveaxis(jnp.asarray(w, jnp.dtype(dtype)), ax, 1)
+    want = jops.group_norms_sq(jw.reshape(4, jw.shape[1], -1))
+    tw = torch.from_numpy(w).to(getattr(torch, dtype))
+    got = ops.group_norms_sq(torch.movedim(tw, ax, 1))
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-5)
+
+
+def test_group_scores_resnet18_full_match_reference():
+    """The dynamic round's mask scores over the full-width ResNet-18 (two
+    consensus groups): every rule, rtol 1e-5."""
+    from repro.core import sparsity as jsp
+    from repro_torch.configs import get_config as t_get_config
+    from repro_torch.core import sparsity as tsp
+    from repro_torch.models import build as t_build
+
+    tb = t_build(t_get_config("resnet18"))
+    rng = np.random.default_rng(5)
+    p = {k: np.asarray(rng.standard_normal((2,) + tuple(s)), np.float32)
+         for k, s in tb.shapes.items()}
+    jp = {}
+    for k, v in p.items():
+        *parents, leaf = k.split("/")
+        node = jp
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = jnp.asarray(v)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    for rule in tb.plan.rules:
+        np.testing.assert_allclose(
+            to_np(tsp.group_scores(tp, rule, offset=1)),
+            np.asarray(jsp.group_scores(jp, rule, offset=1)), rtol=1e-5,
+            err_msg=rule.name)

@@ -159,7 +159,7 @@ def test_shrunk_projection_mask_states_equal_reference(frozen):
     jeng, teng = _j_engine(), _t_engine()
     jplan, tplan = jeng.spec.plan, teng.spec.plan
     budgets, shapes = teng.spec.budgets, dict(teng.bundle.shapes)
-    tmasks = convert.masks_from_jax(frozen["masks"])
+    tmasks = convert.masks_from_jax(frozen["masks"], device="cpu")
     jidx = {r: jnp.asarray(m["idx"]) for r, m in frozen["masks"].items()}
     tidx = {r: m["idx"] for r, m in tmasks.items()}
     j2 = jsh.shrunk_plan(jplan, budgets, shapes)
@@ -183,7 +183,7 @@ def test_compact_and_expand_state_equal_reference(frozen):
     masks, leaf for leaf."""
     jeng, teng = _j_engine(), _t_engine()
     jplan, tplan = jeng.spec.plan, teng.spec.plan
-    tstate = convert.state_from_jax(frozen)
+    tstate = convert.state_from_jax(frozen, device="cpu")
     jstate = jax.tree.map(jnp.asarray, frozen)
     jidx = {r: jstate["masks"][r]["idx"] for r in jstate["masks"]}
     tidx = {r: tstate["masks"][r]["idx"] for r in tstate["masks"]}
@@ -204,7 +204,7 @@ def test_engine_reconfigure_equals_reference(frozen, wire):
     it the same way."""
     jeng, teng = _j_engine(wire=wire), _t_engine(wire=wire)
     jeng2, jst_c = jeng.reconfigure(jax.tree.map(jnp.asarray, frozen))
-    teng2, tst_c = teng.reconfigure(convert.state_from_jax(frozen))
+    teng2, tst_c = teng.reconfigure(convert.state_from_jax(frozen, device="cpu"))
     assert teng2.reconfigured and teng2.parent is teng
     assert not teng.reconfigured
     assert (teng2.cfg.cnn_stem, teng2.cfg.cnn_outs, teng2.cfg.cnn_cmid) == \
@@ -226,7 +226,7 @@ def test_engine_reconfigure_equals_reference(frozen, wire):
 def test_reconfigure_from_masks_only(frozen):
     teng = _t_engine("chip", "compact+q4")
     teng2, none = teng.reconfigure(
-        masks=convert.masks_from_jax(frozen["masks"]))
+        masks=convert.masks_from_jax(frozen["masks"], device="cpu"))
     assert none is None and teng2.reconfigured
     st = teng2.init_state_fn()(0)
     assert st["theta"]["layer1/b0/conv1"].shape == (4, 3, 3, 8, 16)
@@ -240,7 +240,8 @@ def test_reconfigure_from_masks_only(frozen):
 
 
 def _superbatches(eng):
-    return superbatches(batches(make_stream(eng.cfg, SHAPE, eng.workers)),
+    return superbatches(batches(make_stream(eng.cfg, SHAPE, eng.workers,
+                                            device=eng.device)),
                         HP.local_steps)
 
 
@@ -341,7 +342,7 @@ def test_reconfig_train_final_state_matches_reference(runs):
     """The final (shrunk) iterates, consensus z and migrated masks,
     through ``convert``."""
     jst, _, tst, _ = runs
-    ref = convert.state_from_jax(jst)
+    ref = convert.state_from_jax(jst, device="cpu")
     assert tst["theta"]["stem"].shape == ref["theta"]["stem"].shape \
         == (4, 3, 3, 3, 8)
     for grp in ("theta", "u"):

@@ -8,8 +8,9 @@ Two known facts about the JAX reference on the CPU shape these helpers:
   jnp update — the same math as the shim's own fallback.
 * The jitted ``ops.quantize_rows`` computes its scale as ``max * (1/127)``
   while the eager reference divides; the two can differ by one ulp, and
-  a q value can then flip by one step.  The q4 quantizers
-  (``ops.quantize_pack_q4``, ``ops.gather_quantize_q4``) do the same with
+  a q value can then flip by one step.  The fused q8 encode
+  (``ops.gather_quantize``) does the same, and the q4 quantizers
+  (``ops.quantize_pack_q4``, ``ops.gather_quantize_q4``) do it with
   ``max / 7``.  The port divides, so its comparisons patch in quantizers
   with the eager reference's division that ``jit`` cannot rewrite.
 """
@@ -47,6 +48,12 @@ def ieee_quantize_rows(x, levels=127):
     return q.reshape(shape), s.reshape(jops._scale_shape(shape))
 
 
+def ieee_gather_quantize(x, idx, levels=127):
+    """``ops.gather_quantize`` with the eager reference's division."""
+    return ieee_quantize_rows(jnp.take(x, idx.astype(jnp.int32), axis=1),
+                              levels)
+
+
 def _ieee_q4(x2):
     """(R, C) -> the q4 encode of ``ref.quantize_pack_q4_ref`` with its
     ``/ 7`` behind an optimization barrier."""
@@ -78,6 +85,7 @@ def jax_reference(ieee_quantize: bool = False):
         mp.setattr(jops, "_fused_dyn", plain_fused_dyn)
         if ieee_quantize:
             mp.setattr(jops, "quantize_rows", ieee_quantize_rows)
+            mp.setattr(jops, "gather_quantize", ieee_gather_quantize)
             mp.setattr(jops, "quantize_pack_q4", ieee_quantize_pack_q4)
             mp.setattr(jops, "gather_quantize_q4", ieee_gather_quantize_q4)
         yield
