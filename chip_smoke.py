@@ -50,7 +50,23 @@ Phases (any failure exits non-zero and prints no result line):
 5b. one more reconfigured round under the profiler;
 4. one resnet-smoke round on the card and on the CPU from the same state
    (the kernels in context against the plain versions);
-4b. the same for one reconfigured resnet-smoke round over compact+q4.
+4b. the same for one reconfigured resnet-smoke round over compact+q4;
+6. ssd_chunk_scan against its plain version in f32 and bf16 at phase 6a's
+   shape and edge shapes (Q not dividing T, H = 5 with Bt = 1, Q = 64,
+   chunks past exp's range), rtol = atol = 2e-4 and the same bits on a
+   second launch, timed against the plain version and the bound;
+6a. H-SADMM training of mamba2-780m at full width with 4 of its 48
+   layers (213,049,408 parameters, f32) through the port's ``train``: W=4
+   at levels (2, 2), compact+q8 inter-node wire, one 4096-token sequence
+   per worker, eta 1e-3, 5 rounds of 8 local steps, masks frozen after
+   round 2; finite losses, the reference's bytes, per round 32 scan, 136
+   prox, 17 quantize and 18 gather launches and 9 group-norm launches in
+   a dynamic round; peak memory under 60 GB;
+6d. one more frozen round of 6a's path under the profiler;
+6b. phase 6a again, bit-equal; its first two rounds under
+   ``torch.use_deterministic_algorithms``, kernel route against plain
+   route, bit-equal as well;
+6c. one mamba2 smoke round on the card and on the CPU from one state.
 
 It prints one fact per line, then the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line
@@ -75,6 +91,7 @@ PROX_SRC = "src/repro_torch/kernels/csrc/fused_prox_sgd.cu"
 WIRE_SRC = "src/repro_torch/kernels/csrc/wire.cu"
 GATHER_SRC = "src/repro_torch/kernels/csrc/compact.cu"
 NORMS_SRC = "src/repro_torch/kernels/csrc/group_norms.cu"
+SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 
 
 def say(*parts):
@@ -447,6 +464,32 @@ def recorded(module, name, calls):
     return patched(module, name, rec)
 
 
+@contextlib.contextmanager
+def plain_twins():
+    """The wrappers of the kernels that the training paths launch inside a
+    round's compaction, scoring and scan (gather, group norms, the q8
+    gather codec, the SSD scan) replaced by their plain twins."""
+    from repro_torch.kernels import compact, group_norms, ref, ssd_scan, wire
+    with contextlib.ExitStack() as st:
+        st.enter_context(patched(
+            compact, "gather_groups",
+            lambda x, idx, slice_rows=1: ref.gather_groups_ref(
+                x, idx, slice_rows)))
+        st.enter_context(patched(group_norms, "group_norms_sq",
+                                 ref.group_norms_sq_ref))
+        st.enter_context(patched(
+            wire, "gather_quantize",
+            lambda x, idx, levels=127: ref.gather_quantize_ref(
+                x, idx, levels)))
+        st.enter_context(patched(wire, "gather_dequantize",
+                                 ref.gather_dequantize_ref))
+        st.enter_context(patched(
+            ssd_scan, "ssd_chunk_scan",
+            lambda x, dt, A, Bm, Cm, chunk: ref.ssd_chunk_scan_ref(
+                x, dt, A, Bm, Cm, chunk)))
+        yield
+
+
 def round_operands(torch, bundle, lead, dev):
     """The gather and group-norm operands of one dynamic round of phase
     3's path, exactly as the round hands them to the kernel wrappers: the
@@ -688,28 +731,33 @@ def _snapshot_masks(state) -> dict:
     return {name: m["idx"].clone() for name, m in state["masks"].items()}
 
 
-def run_q8(torch, dev, rounds: int = 6, deterministic: bool = True):
-    """Phase 3's configuration trained through the port's ``train``:
-    resnet18 full width, 16 workers at levels (4, 4), compact+q8, masks
-    frozen at round 3.  ``deterministic=False`` turns cuDNN's
-    deterministic switch back off after the Engine set it (only to time
-    what the switch costs).  Launch counts are zeroed just before the run
-    and read after each round's dispatch; the mask indices are kept after
-    every round."""
+def q8_engine(torch, dev):
+    """Phase 3's engine: resnet18 full width, 16 workers at levels (4, 4),
+    compact+q8, masks frozen at round 3; 32 images per worker."""
     from repro_torch.configs import (ConsensusSpec, HsadmmConfig,
                                      ShapeConfig, get_config)
-    from repro_torch.kernels import ops
     from repro_torch.models import build
     from repro_torch.train.engine import Engine
-    from repro_torch.train.loop import RunConfig, train
-
     hp = HsadmmConfig(rho1=1e-3, rho2=1e-4, local_steps=8, t_freeze=3,
                       wire_inter="compact+q8")
     cfg = get_config("resnet18").replace(hsadmm=hp)
     shape = ShapeConfig("chip_smoke", "train", 32, 512)
-    eng = Engine(build(cfg), shape,
-                 consensus=ConsensusSpec(levels=(4, 4), compact_from_level=1),
-                 device=dev)
+    return Engine(build(cfg), shape,
+                  consensus=ConsensusSpec(levels=(4, 4), compact_from_level=1),
+                  device=dev), shape
+
+
+def run_path(torch, engine, rounds: int, eta: float,
+             deterministic: bool = True):
+    """``engine`` = (Engine, ShapeConfig) trained ``rounds`` rounds through
+    the port's ``train`` (seed 0).  ``deterministic=False`` turns cuDNN's
+    deterministic switch back off after the Engine set it (only to time
+    what the switch costs).  Launch counts are zeroed just before the run
+    and read after each round's dispatch; the mask indices are kept after
+    every round; the peak is ``max_memory_allocated`` over the run."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import RunConfig, train
+    eng, shape = engine
     torch.backends.cudnn.deterministic = deterministic
     per_round, masks = [], []
 
@@ -717,7 +765,7 @@ def run_q8(torch, dev, rounds: int = 6, deterministic: bool = True):
         per_round.append(ops.launch_counts())
         masks.append(_snapshot_masks(state))
 
-    run = RunConfig(outer_iters=rounds, shape=shape, eta=1e-2, seed=0,
+    run = RunConfig(outer_iters=rounds, shape=shape, eta=eta, seed=0,
                     metrics_every=1, eval_fn=snapshot, log=None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -735,6 +783,12 @@ def run_q8(torch, dev, rounds: int = 6, deterministic: bool = True):
     return {"eng": eng, "state": state, "rep": rep, "shape": shape,
             "totals": totals, "launches": launches, "masks": masks,
             "wall": wall, "peak": torch.cuda.max_memory_allocated()}
+
+
+def run_q8(torch, dev, rounds: int = 6, deterministic: bool = True):
+    """Phase 3's configuration trained through ``run_path`` (eta 1e-2)."""
+    return run_path(torch, q8_engine(torch, dev), rounds, 1e-2,
+                    deterministic)
 
 
 def round_launches(plan) -> tuple[int, int]:
@@ -857,13 +911,11 @@ def route_vs_plain(torch, dev):
     """Phase 3e: the first three (dynamic) rounds of phase 3's
     configuration as the program runs them, under
     ``torch.use_deterministic_algorithms`` (which raises on any operation
-    without a deterministic implementation), and again with the four new
-    kernel wrappers replaced by their plain twins.  Mask indices and the
-    final theta/z must be bit-equal, the per-round group scores within
-    rtol 1e-5; a flipped mask index fails with the two scores and their
-    gap."""
+    without a deterministic implementation), and again under
+    ``plain_twins``.  Mask indices and the final theta/z must be
+    bit-equal, the per-round group scores within rtol 1e-5; a flipped mask
+    index fails with the two scores and their gap."""
     from repro_torch.core import consensus
-    from repro_torch.kernels import compact, group_norms, ref, wire
     scores = []
     real_scores = consensus.group_scores
 
@@ -880,19 +932,7 @@ def route_vs_plain(torch, dev):
             torch.use_deterministic_algorithms(False)
         k_scores = list(scores)
         scores.clear()
-        with contextlib.ExitStack() as st:
-            st.enter_context(patched(
-                compact, "gather_groups",
-                lambda x, idx, slice_rows=1: ref.gather_groups_ref(
-                    x, idx, slice_rows)))
-            st.enter_context(patched(group_norms, "group_norms_sq",
-                                     ref.group_norms_sq_ref))
-            st.enter_context(patched(
-                wire, "gather_quantize",
-                lambda x, idx, levels=127: ref.gather_quantize_ref(
-                    x, idx, levels)))
-            st.enter_context(patched(wire, "gather_dequantize",
-                                     ref.gather_dequantize_ref))
+        with plain_twins():
             plain = run_q8(torch, dev, rounds=3)
         p_scores = list(scores)
     kt, pt = kern["totals"], plain["totals"]
@@ -926,17 +966,18 @@ def route_vs_plain(torch, dev):
         "torch.use_deterministic_algorithms(True)")
 
 
-def profile_round(torch, eng, state, shape, label="frozen"):
-    """Phases 5 and 5b: one more frozen round of a trained main path under
-    the profiler: device time by kernel, and the device's busy share of
-    the round's device-side span.  Returns the busy share in percent."""
+def profile_round(torch, eng, state, shape, label="frozen", eta=1e-2):
+    """Phases 5, 5b and 6d: one more frozen round of a trained main path
+    under the profiler: device time by kernel, and the device's busy
+    share of the round's device-side span.  Returns the busy share in
+    percent."""
     from collections import defaultdict
     from repro_torch.data.pipeline import batches, superbatches
     from repro_torch.data.synthetic import make_stream
     sb = next(superbatches(batches(make_stream(
         eng.cfg, shape, eng.workers, device=eng.device)), 8))
     step = eng.round_step_fn(frozen=True)
-    eta = torch.tensor(1e-2, device=eng.device)
+    eta = torch.tensor(eta, device=eng.device)
     t0 = time.perf_counter()
     evs = device_events(lambda: step(state, sb, eta), 1)
     wall = (time.perf_counter() - t0) / 2      # warm-up + profiled run
@@ -968,6 +1009,9 @@ def profile_round(torch, eng, state, shape, label="frozen"):
         low = name.lower()
         if "prox_sgd" in low:
             cats["prox_sgd kernel"] += ms
+        elif any(t in low for t in ("chunk_scan", "chunk_state", "chunk_cb",
+                                    "state_pass", "chunk_cumsum")):
+            cats["ssd_chunk_scan kernels"] += ms
         elif "quantize_rows" in low:
             cats["quantize_rows kernel"] += ms
         elif "q4" in low:
@@ -992,31 +1036,24 @@ def profile_round(torch, eng, state, shape, label="frozen"):
     return 100 * busy / span
 
 
-def smoke_round_cpu_vs_card(torch, dev):
-    """Phase 4: one resnet-smoke round from one state on the card and on
-    the CPU (plain versions); theta and z agree to rtol 1e-4."""
+def smoke_round_cpu_vs_card(torch, dev, bundle, spec, shape, keys, eta,
+                            label):
+    """One round of ``bundle`` under ``spec`` from one state on the card
+    and on the CPU (plain versions), on the first 8 batches (``keys``) of
+    ``shape``'s stream for 4 workers: theta and z agree to rtol 1e-4
+    (atol 1e-6), the mask indices are equal."""
     import numpy as np
-    from repro_torch.configs import (ConsensusSpec, HsadmmConfig,
-                                     ShapeConfig, get_config)
-    from repro_torch.core.hsadmm import EngineSpec, init_state, round_step
+    from repro_torch.core.hsadmm import init_state, round_step
     from repro_torch.data.synthetic import make_stream
-    from repro_torch.models import build
-
-    hp = HsadmmConfig(rho1=1e-3, rho2=1e-4, local_steps=8,
-                      wire_inter="compact+q8")
-    cfg = get_config("resnet18", smoke=True).replace(hsadmm=hp)
-    b = build(cfg)
-    spec = EngineSpec(plan=b.plan, consensus=ConsensusSpec((2, 2), 1),
-                      hp=hp, stack_map=tuple(b.stack_map))
-    stream = make_stream(cfg, ShapeConfig("s", "train", 16, 16), 4,
-                         device="cpu")
+    stream = make_stream(bundle.cfg, shape, 4, device="cpu")
     sb = {k: torch.stack([stream.batch_at(s)[k] for s in range(8)])
-          for k in ("images", "labels")}
+          for k in keys}
     out = {}
     for d in ("cpu", dev):
-        st0 = init_state(b.init(torch.Generator().manual_seed(0), d), spec)
+        st0 = init_state(bundle.init(torch.Generator().manual_seed(0), d),
+                         spec)
         st, _ = round_step(st0, {k: v.to(d) for k, v in sb.items()},
-                           b.train_loss, spec, 1e-2)
+                           bundle.train_loss, spec, eta)
         out[str(d)] = st
     cpu, gpu = out["cpu"], out[str(dev)]
     worst = 0.0
@@ -1032,8 +1069,25 @@ def smoke_round_cpu_vs_card(torch, dev):
         if not torch.equal(cpu["masks"][rule]["idx"],
                            gpu["masks"][rule]["idx"].cpu()):
             raise AssertionError(f"mask idx differ for {rule}")
-    say(f"smoke round card vs CPU: theta/z within rtol 1e-4 (max abs diff "
+    say(f"{label} card vs CPU: theta/z within rtol 1e-4 (max abs diff "
         f"{worst}), mask idx equal")
+
+
+def smoke_resnet_cpu_vs_card(torch, dev):
+    """Phase 4: one resnet-smoke round (W = 4 at levels (2, 2),
+    compact+q8, E = 8, eta 1e-2) through ``smoke_round_cpu_vs_card``."""
+    from repro_torch.configs import (ConsensusSpec, HsadmmConfig,
+                                     ShapeConfig, get_config)
+    from repro_torch.core.hsadmm import EngineSpec
+    from repro_torch.models import build
+    hp = HsadmmConfig(rho1=1e-3, rho2=1e-4, local_steps=8,
+                      wire_inter="compact+q8")
+    b = build(get_config("resnet18", smoke=True).replace(hsadmm=hp))
+    spec = EngineSpec(plan=b.plan, consensus=ConsensusSpec((2, 2), 1),
+                      hp=hp, stack_map=tuple(b.stack_map))
+    smoke_round_cpu_vs_card(torch, dev, b, spec,
+                            ShapeConfig("s", "train", 16, 16),
+                            ("images", "labels"), 1e-2, "smoke round")
 
 
 def train_reconfig(torch, dev):
@@ -1346,6 +1400,222 @@ def smoke_reconfig_cpu_vs_card(torch, dev):
         f"(max abs diff {worst}), mask idx equal")
 
 
+# ---------------------------------------------------------------------------
+# Mamba2-780M: the SSD chunk-scan kernel and H-SADMM training (phases 6-6d)
+# ---------------------------------------------------------------------------
+
+MAMBA_LAYERS = 4      # of the config's 48: W copies of the state fit one card
+MAMBA_ROUNDS = 5
+# inter-node bytes per dynamic / frozen round of phase 6a's configuration,
+# the reference's analytic count (tests/test_torch_ssm_train.py BYTES)
+MAMBA_BYTES = (186_242_532, 186_241_764)
+SSD_TOL = 2e-4        # rtol = atol, tests/test_kernels.py's SSD tolerance
+
+
+def _ssd_inputs(torch, Bt, T, H, P, N, dtype, gen, dev, dt_shift=-3.0):
+    """Scan operands like the mixer's: dt = softplus(~N(-3, 1)) (the
+    init's bias), A = -exp(~N(0, 0.09)) per batch row."""
+    F = torch.nn.functional
+    x = torch.randn((Bt, T, H, P), generator=gen, device=dev) * 0.5
+    dt = F.softplus(torch.randn((Bt, T, H), generator=gen, device=dev)
+                    + dt_shift)
+    A = -torch.exp(torch.randn((Bt, H), generator=gen, device=dev) * 0.3)
+    Bm = torch.randn((Bt, T, N), generator=gen, device=dev)
+    Cm = torch.randn((Bt, T, N), generator=gen, device=dev)
+    return [x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype)]
+
+
+def ssd_bound(Bt, T, H, P, N, Q, elem):
+    """(ms, "bytes" | "operations") of one scan: x, B, C, dt, A read and
+    y, h written once; the products the causal scan needs: C.B^T and the
+    intra-chunk product over the lower triangle (s <= q) of each chunk,
+    the entering-state term and the chunk states (Q x N x P per step and
+    head each)."""
+    nc = T // Q
+    tri = Q * (Q + 1) // 2
+    ops = (2.0 * Bt * nc * tri * N + 2.0 * Bt * nc * H * tri * P
+           + 4.0 * Bt * T * H * N * P)
+    nbytes = (elem * (2.0 * Bt * T * H * P + 2.0 * Bt * T * N)
+              + 4.0 * (Bt * T * H + Bt * H + Bt * H * N * P))
+    return bound(nbytes, ops)
+
+
+def check_ssd(torch, dev):
+    """Phase 6: ssd_chunk_scan against its plain version on the card, in
+    f32 and bf16, at phase 6a's shape (Bt 4 = W x 1 sequence, T 4096, H
+    48, P 64, N 128, Q 256) and at edge shapes: Q not dividing T (T 1000:
+    Q 250), H 5 (not a multiple of the TPU kernel's head block of 8) with
+    Bt 1, a short T with Q 64, and chunks whose sum of dt*|A| passes 88
+    (the decay's exponent above the diagonal overflows there).  y and h
+    within rtol = atol = 2e-4, the same bits on a second launch; timed
+    against the plain version and the bound."""
+    from repro_torch.kernels import ref, ssd_scan
+    gen = torch.Generator(device=dev).manual_seed(11)
+    path = (4, 4096, 48, 64, 128, 256)
+    cases = [(path, -3.0), ((1, 1000, 5, 64, 128, 256), -3.0),
+             ((2, 200, 48, 64, 128, 64), -3.0),
+             ((2, 512, 4, 64, 128, 256), 3.0)]
+    err, equal = 0.0, True
+    for dtype in (torch.float32, torch.bfloat16):
+        for (Bt, T, H, P, N, chunk), shift in cases:
+            a = _ssd_inputs(torch, Bt, T, H, P, N, dtype, gen, dev, shift)
+            y, h = ssd_scan.ssd_chunk_scan(*a, chunk=chunk)
+            y2, h2 = ssd_scan.ssd_chunk_scan(*a, chunk=chunk)
+            yr, hr = ref.ssd_chunk_scan_ref(*a, chunk)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(y.float()).all()
+                    and torch.isfinite(h).all()):
+                raise AssertionError(f"ssd_chunk_scan {(Bt, T, H, P, N)} "
+                                     f"{dtype}: non-finite output")
+            torch.testing.assert_close(y.float(), yr.float(), rtol=SSD_TOL,
+                                       atol=SSD_TOL)
+            torch.testing.assert_close(h, hr, rtol=SSD_TOL, atol=SSD_TOL)
+            if not (torch.equal(y, y2) and torch.equal(h, h2)):
+                raise AssertionError(f"ssd_chunk_scan {(Bt, T, H, P, N)} "
+                                     f"{dtype}: other bits on a second run")
+            err = max(err, _abs_err(torch, y.float(), yr.float()),
+                      _abs_err(torch, h, hr))
+            equal = equal and torch.equal(y, yr) and torch.equal(h, hr)
+            del a, y, h, y2, h2, yr, hr
+    say(f"ssd_chunk_scan check: {len(cases)} shapes (phase 6a's, Q not "
+        "dividing T, H = 5 with Bt = 1, Q = 64, chunks past exp's range) "
+        f"in f32 and bf16 within rtol = atol = {SSD_TOL} of the plain "
+        f"version, the same bits on a second launch; max abs err {err} "
+        f"(bit-equal to the plain version: {equal})")
+    Bt, T, H, P, N, chunk = path
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        a = _ssd_inputs(torch, Bt, T, H, P, N, dtype, gen, dev)
+        ms, stream = kernel_ms(
+            lambda: ssd_scan.ssd_chunk_scan(*a, chunk=chunk), 20)
+        plain_ms, _ = kernel_ms(lambda: ref.ssd_chunk_scan_ref(*a, chunk), 5)
+        b_ms, b_by = ssd_bound(Bt, T, H, P, N, chunk, a[0].element_size())
+        out[dtype] = (ms, stream, plain_ms, b_ms, b_by)
+        say(f"ssd_chunk_scan {str(dtype)[6:]}: Bt {Bt} T {T} H {H} P {P} N "
+            f"{N} Q {chunk}: kernel {ms:.4f} ms on the device ({stream:.4f} "
+            f"ms on the stream), plain {plain_ms:.4f} ms, no library call, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        del a
+    ms, stream, plain_ms, b_ms, b_by = out[torch.float32]
+    return [{"name": "ssd_chunk_scan", "route": "cuda", "source": SSD_SRC,
+             "replaces": "src/repro/kernels/ssd_scan.py:57",
+             "max_abs_err": err, "ms": ms, "stream_ms": stream,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": None}]
+
+
+def mamba_engine(torch, dev, layers=MAMBA_LAYERS, smoke=False):
+    """Phase 6a's engine: mamba2-780m at full width (or its smoke config),
+    ``layers`` layers, f32, W = 4 at levels (2, 2), compact+q8 from level
+    1, masks frozen after round 2, the config's other H-SADMM settings;
+    one 4096-token sequence per worker."""
+    import dataclasses
+    from repro_torch.configs import ConsensusSpec, ShapeConfig, get_config
+    from repro_torch.models import build
+    from repro_torch.train.engine import Engine
+    cfg = get_config("mamba2-780m", smoke=smoke)
+    hp = dataclasses.replace(cfg.hsadmm, t_freeze=2, wire_inter="compact+q8")
+    cfg = cfg.replace(hsadmm=hp, param_dtype="float32")
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    shape = ShapeConfig("train_4k", "train", 32 if smoke else 4096, 4)
+    return Engine(build(cfg), shape,
+                  consensus=ConsensusSpec(levels=(2, 2), compact_from_level=1),
+                  device=dev), shape
+
+
+def run_mamba(torch, dev, rounds=MAMBA_ROUNDS):
+    """Phase 6a's configuration trained through ``run_path`` (eta 1e-3)."""
+    return run_path(torch, mamba_engine(torch, dev), rounds, 1e-3)
+
+
+def mamba_round_launches(plan, leaves: int, E: int = 8) -> dict:
+    """The launches one round of phase 6a makes: one scan per layer per
+    local step, prox per leaf per step, one q8 quantize per payload leaf,
+    the gathers and group norms of the ssm_heads rule (the latter in
+    dynamic rounds)."""
+    gathers, views = round_launches(plan)
+    return {"ssd_chunk_scan": MAMBA_LAYERS * E,
+            "fused_prox_sgd_dyn": leaves * E, "quantize_rows": leaves,
+            "gather_groups": gathers, "group_norms_sq": views}
+
+
+def train_mamba(torch, dev):
+    """Phase 6a: the Mamba2 path, checked.  Returns ``run_mamba``'s
+    result."""
+    r = run_mamba(torch, dev)
+    rep, launches, eng = r["rep"], r["launches"], r["eng"]
+    n = sum(math.prod(s) for s in eng.bundle.shapes.values())
+    say(f"train mamba2: mamba2-780m full width, {eng.cfg.n_layers} of 48 "
+        f"layers ({n} parameters, {len(eng.bundle.shapes)} leaves, f32), "
+        "W=4 levels (2, 2), compact+q8, one 4096-token sequence per worker, "
+        f"eta 1e-3, {rep.outer_iters} rounds in {r['wall']:.2f} s")
+    for k in range(rep.outer_iters):
+        say(f"round {k}: {rep.executables[k]} loss={rep.losses[k]:.6f} "
+            f"wall_ms={rep.wall_times[k] * 1e3:.1f} "
+            f"internode_bytes={rep.comm_bytes_internode[k]} "
+            f"launches={launches[k]}")
+    walls = [w * 1e3 for w in rep.wall_times[1:]]
+    say(f"frozen_at: {rep.frozen_at}; steady median {_median(walls):.1f} ms "
+        f"over rounds 1-{rep.outer_iters - 1}; max_memory_allocated: "
+        f"{r['peak']} bytes")
+    if not all(math.isfinite(x) for x in rep.losses):
+        raise AssertionError(f"non-finite losses {rep.losses}")
+    if rep.frozen_at != 2:
+        raise AssertionError(f"frozen_at {rep.frozen_at} != 2")
+    want_b = [MAMBA_BYTES[0]] * 2 + [MAMBA_BYTES[1]] * (rep.outer_iters - 2)
+    if rep.comm_bytes_internode != want_b:
+        raise AssertionError(f"bytes {rep.comm_bytes_internode}")
+    want = mamba_round_launches(eng.bundle.plan, len(eng.bundle.shapes))
+    for k, c in enumerate(launches):
+        w = dict(want, group_norms_sq=want["group_norms_sq"]
+                 if rep.executables[k] == "dynamic" else 0)
+        if any(c[name] != v for name, v in w.items()):
+            raise AssertionError(f"round {k} launches {c}; expected {w}")
+    if r["peak"] >= 60e9:
+        raise AssertionError(f"peak {r['peak']} bytes >= 60 GB")
+    return r
+
+
+def _slim(r):
+    """Keep what a later comparison reads: the final theta and z."""
+    r["state"] = {"theta": r["state"]["theta"], "z": r["state"]["z"]}
+    return r
+
+
+def determinism_mamba(torch, dev, first):
+    """Phase 6b: phase 6a again, bit-equal; then its first two rounds
+    under ``torch.use_deterministic_algorithms`` twice, the kernel route
+    against the plain route (``plain_twins``), bit-equal as well."""
+    again = _slim(run_mamba(torch, dev))
+    compare_runs(torch, first, again, "mamba2")
+    del again
+    torch.use_deterministic_algorithms(True)
+    try:
+        kern = _slim(run_mamba(torch, dev, rounds=2))
+        with plain_twins():
+            plain = _slim(run_mamba(torch, dev, rounds=2))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    kt, pt = kern["totals"], plain["totals"]
+    if kt["ssd_chunk_scan"] != 2 * MAMBA_LAYERS * 8 or pt["ssd_chunk_scan"]:
+        raise AssertionError(f"route launches: kernel {kt}, plain {pt}")
+    compare_runs(torch, kern, plain, "mamba2 kernel route vs plain route")
+    say("mamba2 route vs plain: 2 rounds under "
+        "torch.use_deterministic_algorithms(True); kernel route "
+        f"ssd_chunk_scan launches {kt['ssd_chunk_scan']}, plain route "
+        f"{pt['ssd_chunk_scan']}")
+
+
+def smoke_mamba_cpu_vs_card(torch, dev):
+    """Phase 6c: one mamba2-780m smoke round (2 layers, W = 4 at levels
+    (2, 2), compact+q8, E = 8, eta 1e-3) through
+    ``smoke_round_cpu_vs_card``."""
+    eng, shape = mamba_engine(torch, dev, layers=None, smoke=True)
+    smoke_round_cpu_vs_card(torch, dev, eng.bundle, eng.spec, shape,
+                            ("tokens",), 1e-3, "mamba2 smoke round")
+
+
 def main() -> int:
     try:
         import torch
@@ -1428,11 +1698,31 @@ def main() -> int:
         del rc
         say("phase 5b profile: ok")
 
-        smoke_round_cpu_vs_card(torch, dev)
+        smoke_resnet_cpu_vs_card(torch, dev)
         say("phase 4 smoke round card vs CPU: ok")
 
         smoke_reconfig_cpu_vs_card(torch, dev)
         say("phase 4b smoke reconfigured round card vs CPU: ok")
+
+        kernels += check_ssd(torch, dev)
+        say("phase 6 ssd_chunk_scan vs plain: ok")
+
+        mamba = train_mamba(torch, dev)
+        m_rep, m_peak, m_totals = mamba["rep"], mamba["peak"], \
+            mamba["totals"]
+        say(f"phase 6a train mamba2: ok, launches {m_totals}")
+
+        m_busy = profile_round(torch, mamba["eng"], mamba["state"],
+                               mamba["shape"], label="mamba2 frozen",
+                               eta=1e-3)
+        say("phase 6d profile: ok")
+
+        determinism_mamba(torch, dev, _slim(mamba))
+        del mamba
+        say("phase 6b determinism: ok")
+
+        smoke_mamba_cpu_vs_card(torch, dev)
+        say("phase 6c mamba2 smoke round card vs CPU: ok")
 
         # the main paths' end-to-end numbers again, next to the result
         say("summary: round wall_ms "
@@ -1449,6 +1739,11 @@ def main() -> int:
             f"{mem['peak_full']} / reconfigured {mem['peak_reconfigured']} "
             f"bytes, device busy {rc_busy:.1f}% of a reconfigured round's "
             "span")
+        say("summary mamba2: round wall_ms "
+            f"{[round(w * 1e3, 1) for w in m_rep.wall_times]}, losses "
+            f"{[round(x, 4) for x in m_rep.losses]}, frozen_at "
+            f"{m_rep.frozen_at}, peak {m_peak} bytes, device busy "
+            f"{m_busy:.1f}% of a frozen round's span")
     except Exception as e:   # any phase failing fails the run, loudly
         import traceback
         traceback.print_exc()
@@ -1457,8 +1752,9 @@ def main() -> int:
     # launches: each kernel's count on the path that runs it (phase 3 for
     # prox-SGD, quantize_rows, the gather and the group norms, 3b for the
     # q4 quantizer, 3c for the q4 codec API's gather and unpack kernels,
-    # 3d for the q8 codec API's gather kernels)
+    # 3d for the q8 codec API's gather kernels, 6a for the SSD scan)
     paths = {"quantize_pack_q4": ("3b", rc_totals),
+             "ssd_chunk_scan": ("6a", m_totals),
              "gather_quantize_q4": ("3c", api),
              "unpack_gather_dequantize_q4": ("3c", api),
              "gather_quantize": ("3d", api8),

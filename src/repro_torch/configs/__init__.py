@@ -1,8 +1,9 @@
-"""Config registry: importing this package registers the ResNet family
-(the only family the port trains so far)."""
+"""Config registry: importing this package registers the families the
+port trains: the ResNet family and Mamba2-780M."""
 from .base import (ArchConfig, ConsensusSpec, HsadmmConfig, ShapeConfig,
                    get_config, register)
 
+from . import mamba2_780m          # noqa: F401
 from . import resnet               # noqa: F401
 
 __all__ = ["ArchConfig", "ConsensusSpec", "HsadmmConfig", "ShapeConfig",

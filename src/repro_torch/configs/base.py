@@ -1,11 +1,12 @@
 """Architecture / shape / run configuration dataclasses (the port's own
 copy of ``repro.configs.base``).
 
-Only the ResNet family is registered in this package so far
-(``repro_torch.configs.resnet``), so only the fields the ResNet path reads
-are copied; each keeps the reference's name and default, so a config
-means the same run in both packages.  A later slice that ports another
-family copies its fields with it.
+The ResNet family (``repro_torch.configs.resnet``) and the Mamba2 SSM
+(``repro_torch.configs.mamba2_780m``) are registered in this package, so
+only the fields those two families read are copied; each keeps the
+reference's name and default, so a config means the same run in both
+packages.  A later slice that ports another family copies its fields with
+it.
 """
 from __future__ import annotations
 
@@ -106,7 +107,20 @@ class ConsensusSpec:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # "cnn" (the reference also has dense | moe | ssm | ...)
+    family: str  # "cnn" | "ssm" (the reference also has dense | moe | ...)
+
+    # LM backbone (the fields the SSM family reads)
+    n_layers: int = 0
+    d_model: int = 0
+    vocab: int = 0
+    norm_eps: float = 1e-5
+
+    # SSM (mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv: int = 4
+    ssm_chunk: int = 128
 
     # cnn (ResNet family).  cnn_widths is the per-stage BASE width; the
     # derived per-stage widths can be overridden explicitly — the handles

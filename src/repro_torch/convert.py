@@ -1,13 +1,16 @@
-"""Carry weights and H-SADMM state across from the JAX package.
+"""Carry weights and H-SADMM state across between the two packages.
 
-The inputs are the JAX package's trees AFTER ``jax.device_get``: nested
-dicts (and lists) of numpy arrays, so this module imports nothing of JAX.
-Leaves map one to one onto the port's flat ``{"/"-joined key: tensor}``
-dicts with the same keys, shapes and dtypes, except mask indices, which
-become int64 (PyTorch's index type).  Both packages then compute on the
-same numbers.  Like every entry point of the port, each function puts
-its tensors on the card unless the caller asks for the CPU
-(``device="cpu"``).
+The JAX package's side is its trees as numpy: ``jax.device_get`` of
+nested dicts (and lists) of arrays, so this module imports nothing of
+JAX.  Leaves map one to one onto the port's flat ``{"/"-joined key:
+tensor}`` dicts with the same keys, shapes and dtypes (an LM's
+``blocks/mixer/wz`` is ``tree["blocks"]["mixer"]["wz"]``, layers stacked
+on its leading axis), except mask indices, which are int64 in the port
+(PyTorch's index type) and int32 in the JAX package.  Both packages then
+compute on the same numbers.  Like every entry point of the port, the
+``*_from_jax`` functions put their tensors on the card unless the caller
+asks for the CPU (``device="cpu"``); the ``*_to_jax`` ones return numpy
+trees that ``jax.numpy.asarray`` takes as they are.
 
 A RECONFIGURED JAX state (budget-B shapes, its migrated masks) converts
 the same way; :func:`masks_from_jax` carries the frozen full-shape masks
@@ -70,4 +73,47 @@ def state_from_jax(state: dict, device=None) -> dict:
         else:
             raise NotImplementedError(
                 f"state entry {name!r} has no counterpart in the port yet")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the other way: port -> JAX trees of numpy arrays
+# ---------------------------------------------------------------------------
+
+
+def _nested(flat: dict) -> dict:
+    out: dict = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v.detach().cpu().numpy()
+    return out
+
+
+def params_to_jax(params: dict) -> dict:
+    """Port flat params -> the JAX package's nested tree (numpy leaves)."""
+    return _nested(params)
+
+
+def state_to_jax(state: dict) -> dict:
+    """Port H-SADMM state -> the JAX package's state tree (numpy leaves,
+    int32 mask indices)."""
+    out = {}
+    for name, v in state.items():
+        if name in ("theta", "mom", "u"):
+            out[name] = params_to_jax(v)
+        elif name in ("z", "v", "rho"):
+            out[name] = [params_to_jax(t) for t in v]
+        elif name == "masks":
+            out[name] = {rule: {f: a.detach().cpu().numpy().astype(np.int32)
+                                if f == "idx" else a.detach().cpu().numpy()
+                                for f, a in m.items()}
+                         for rule, m in v.items()}
+        elif name in ("weights", "k"):
+            out[name] = v.detach().cpu().numpy()
+        else:
+            raise NotImplementedError(
+                f"state entry {name!r} has no counterpart in the JAX package")
     return out

@@ -23,7 +23,7 @@ from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
 import torch
-from torch.func import grad_and_value, vmap
+from torch.func import vjp, vmap
 
 from ..configs.base import ConsensusSpec, HsadmmConfig
 from ..kernels.ops import prox_sgd_update
@@ -180,13 +180,30 @@ def init_state(params0: Params, spec: EngineSpec) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def grad_and_value(loss_fn: Callable) -> Callable:
+    """``fn(params, batch) -> (grads, loss)``: ``torch.func.grad_and_value``
+    of ``loss_fn`` in ``params``, with the backward pass not recorded.
+    torch.func's own records it (``create_graph=True``, so that transforms
+    can nest), which keeps every forward activation and every
+    intermediate of the backward alive until it returns; here the
+    backward runs as ``loss.backward()`` would, freeing each saved tensor
+    once it is used.  Same gradients, up to the rounding of the backward
+    formulas PyTorch picks when it does not record."""
+    def fn(params, batch):
+        loss, pullback = vjp(lambda p: loss_fn(p, batch), params)
+        with torch.no_grad():
+            (g,) = pullback(torch.ones_like(loss), retain_graph=False)
+        return g, loss
+    return fn
+
+
 def local_step(state: dict, batch: dict, loss_fn: Callable, spec: EngineSpec,
                eta, grad_accum: int = 1) -> tuple[dict, torch.Tensor]:
     """One minibatch prox-SGD step on every worker.
 
     ``loss_fn(params_one_worker, batch_one_worker) -> scalar``; batch
-    leaves have leading dim W.  Per-worker gradients come from
-    ``vmap(grad)`` over the stacked parameters; the prox gradient
+    leaves have leading dim W.  Per-worker gradients come from ``vmap`` of
+    :func:`grad_and_value` over the stacked parameters; the prox gradient
     rho1 * (theta - z1 + u) is added analytically inside the fused update
     (``ops.prox_sgd_update``, the hand-written kernel on the card).
     Returns (new_state, mean loss)."""

@@ -14,10 +14,11 @@ from . import compact as _compact
 from . import fused_prox_sgd as _prox
 from . import group_norms as _gnorms
 from . import ref as _ref
+from . import ssd_scan as _ssd
 from . import wire as _wire
 
 _COUNTERS = (_prox.launches, _compact.launches, _wire.launches,
-             _gnorms.launches)
+             _gnorms.launches, _ssd.launches)
 
 
 def _rc(shape: tuple) -> tuple[int, int]:
@@ -266,3 +267,21 @@ def group_norms_sq(x):
     sizes, strides = zip(*dims)
     v = x.as_strided((G, C) + sizes, (x.stride(0), x.stride(1)) + strides)
     return _gnorms.group_norms_sq(v)
+
+
+# ------------------------------------------------------------------ #
+# Mamba2 SSD chunk scan (kernels/ssd_scan.py)
+# ------------------------------------------------------------------ #
+
+
+def ssd_chunk_scan(x, dt, A, Bm, Cm, chunk: int = 128):
+    """x (Bt, T, H, P), dt (Bt, T, H), A (H,) or (Bt, H), Bm/Cm (Bt, T, N)
+    -> (y (Bt, T, H, P) in x's dtype, h (Bt, H, N, P) f32).  dt and A go
+    to f32, B and C to x's dtype, and a per-head A is broadcast to one
+    row per batch row."""
+    Bt, _, H, _ = x.shape
+    f32 = torch.float32
+    return _ssd.ssd_chunk_scan(
+        x.contiguous(), dt.to(f32).contiguous(),
+        A.to(f32).expand(Bt, H).contiguous(), Bm.to(x.dtype).contiguous(),
+        Cm.to(x.dtype).contiguous(), chunk=chunk)

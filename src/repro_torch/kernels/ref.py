@@ -161,3 +161,57 @@ def scatter_dequantize_q4_ref(p, s, idx, full):
     channels 0."""
     pp, inv = expand_operands_q4(p, idx, full)
     return unpack_gather_dequantize_q4_ref(pp, s, inv)
+
+
+def chunk_len(T: int, chunk: int) -> int:
+    """``min(chunk, T)``, lowered to a divisor of T: the SSD scan's chunk
+    length (as ``repro.models.ssm.ssd_scan`` picks it) and the loss's
+    (``repro.models.layers._pick_chunk``)."""
+    Q = min(chunk, T)
+    while T % Q:
+        Q -= 1
+    return Q
+
+
+def ssd_chunk_scan_ref(x, dt, A, Bm, Cm, chunk):
+    """Mamba2 SSD chunked scan, the plain twin of ``csrc/ssd_scan.cu`` and
+    of ``repro.models.ssm.ssd_scan``.  x (Bt, T, H, P), dt (Bt, T, H), A
+    (H,) or (Bt, H), Bm/Cm (Bt, T, N) -> (y (Bt, T, H, P) in x's dtype,
+    h (Bt, H, N, P) f32); all arithmetic in f32.
+
+    The intra-chunk terms of all chunks are computed at once, then the
+    state runs through the chunks in order.  Two choices keep it usable
+    under autograd and ``torch.use_deterministic_algorithms`` on the card:
+    the decay's exponent is set to -inf above the diagonal BEFORE the
+    exp, so neither the forward nor the gradient meets inf * 0 (NaN), and
+    the within-chunk cumulative sum of dt*A is a product with a triangle of
+    ones, since ``torch.cumsum`` has no deterministic CUDA version."""
+    Bt, T, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = chunk_len(T, chunk)
+    nc = T // Q
+    f32 = torch.float32
+    A = A.to(f32).expand(Bt, H)
+    xh = x.to(f32).reshape(Bt, nc, Q, H, P).transpose(2, 3)  # (b,c,h,s,p)
+    dth = dt.to(f32).reshape(Bt, nc, Q, H).transpose(2, 3)   # (b,c,h,s)
+    Bc = Bm.to(f32).reshape(Bt, nc, Q, N)
+    Cc = Cm.to(f32).reshape(Bt, nc, Q, N)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    cum = (dth * A[:, None, :, None]) @ causal.T.to(f32)       # inclusive
+    seg = cum[..., :, None] - cum[..., None, :]                 # (q, s)
+    decay = torch.exp(torch.where(causal, seg, float("-inf")))
+    cb = Cc @ Bc.transpose(-1, -2)                              # (b,c,q,s)
+    w = cb[:, :, None] * decay * dth[..., None, :]
+    y1 = w @ xh                                                 # (b,c,h,q,p)
+    dec_end = torch.exp(cum[..., -1:] - cum)                    # (b,c,h,s)
+    S = Bc.transpose(-1, -2)[:, :, None] @ ((dec_end * dth)[..., None] * xh)
+    d_chunk = torch.exp(cum[..., -1])                           # (b,c,h)
+    h = torch.zeros((Bt, H, N, P), dtype=f32, device=x.device)
+    entering = []
+    for c in range(nc):                                         # in order
+        entering.append(h)
+        h = h * d_chunk[:, c, :, None, None] + S[:, c]
+    y2 = (Cc[:, :, None] @ torch.stack(entering, dim=1)) \
+        * torch.exp(cum)[..., None]
+    y = (y1 + y2).transpose(2, 3).reshape(Bt, T, H, P)
+    return y.to(x.dtype), h

@@ -16,7 +16,6 @@ introspection wait for later slices of the port.
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Optional
 
 import torch
@@ -43,11 +42,10 @@ class Engine:
             # the same seed gives the same run: cuDNN's fastest weight-
             # gradient algorithms accumulate with atomics in an order that
             # changes from run to run, and autotuning may pick another
-            # algorithm each time; cuBLAS needs a fixed workspace for
-            # deterministic results (read when its handle is created)
+            # algorithm each time (cuBLAS's fixed workspace is set when
+            # the package is imported, see repro_torch/__init__.py)
             torch.backends.cudnn.deterministic = True
             torch.backends.cudnn.benchmark = False
-            os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         self.bundle = bundle
         self.cfg = bundle.cfg
         self.shape = shape

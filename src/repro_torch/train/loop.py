@@ -15,9 +15,11 @@ compacted or full payload shapes, plus the Phase-3 mask-agreement bytes in
 dynamic rounds.
 
 With ``RunConfig.reconfig``, once masks have stayed frozen for
-``HsadmmConfig.reconfig_patience`` rounds the loop drains, migrates the whole state
-onto the budget-B model (``Engine.reconfigure``) and runs the frozen
-round of the reconfigured engine from then on.
+``RunConfig.reconfig_patience`` rounds (None: ``HsadmmConfig.
+reconfig_patience``) the loop drains, migrates the whole state onto the
+budget-B model (``Engine.reconfigure``) and runs the frozen round of the
+reconfigured engine from then on.  A model family without a width mapping
+(the SSM) refuses ``reconfig`` before the first round.
 
 Options that later slices of the port bring (checkpoints, fault-tolerance
 policies, automatic wire selection, compiled-HLO statistics, overlapped
@@ -35,15 +37,14 @@ from ..configs.base import ShapeConfig
 from ..core.shrinkage import mask_sync_bytes, plan_bytes
 from ..data.pipeline import batches, prefetch, superbatches
 from ..data.synthetic import make_stream
+from ..models import can_shrink
 from .engine import Engine
 
 
 @dataclass(frozen=True)
 class RunConfig:
     """Everything one training run needs beyond the engine itself (the
-    reference's fields, see ``repro.train.loop.RunConfig``, less its
-    ``reconfig_patience`` override: the patience is
-    ``HsadmmConfig.reconfig_patience``)."""
+    reference's fields, see ``repro.train.loop.RunConfig``)."""
 
     outer_iters: int
     shape: ShapeConfig
@@ -63,7 +64,11 @@ class RunConfig:
     wire_map: Optional[tuple] = None
     wire_auto: bool = False
     staleness: Optional[int] = None
+    # physical reconfiguration: once masks have been frozen for
+    # `reconfig_patience` rounds (None = HsadmmConfig.reconfig_patience),
+    # migrate the whole state onto budget-B shapes
     reconfig: bool = False
+    reconfig_patience: Optional[int] = None
     log: Optional[Callable] = print
 
 
@@ -153,6 +158,11 @@ def _refuse_unported(run: RunConfig) -> None:
 def train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
     """Run the H-SADMM training loop of ``run`` on the engine's device."""
     _refuse_unported(run)
+    if run.reconfig and not can_shrink(engine.cfg):
+        raise NotImplementedError(
+            f"RunConfig.reconfig: model family {engine.cfg.family!r} has no "
+            "width mapping for physical reconfiguration (as in the "
+            "reference)")
     return _train(engine, run)
 
 
@@ -168,6 +178,8 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
     it = prefetch(superbatches(batches(stream), E))
     round_dyn = engine.round_step_fn(frozen=False)
     round_frz = engine.round_step_fn(frozen=True)
+    patience = run.reconfig_patience if run.reconfig_patience is not None \
+        else hp.reconfig_patience
     rc_engine = None   # the reconfigured engine once the migration ran
 
     state = engine.init_state_fn()(run.seed)
@@ -225,7 +237,7 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
     for k in range(run.outer_iters):
         if run.reconfig and frozen and rc_engine is None \
                 and report.frozen_at is not None \
-                and k - report.frozen_at >= hp.reconfig_patience:
+                and k - report.frozen_at >= patience:
             # masks stable for `patience` frozen rounds: drain, then move
             # the whole state onto budget-B shapes (the full-shape state
             # is freed when `state` is rebound)

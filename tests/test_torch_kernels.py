@@ -151,11 +151,15 @@ def test_launch_counts_do_not_move_on_the_cpu():
     ops.scatter_dequantize(*ops.gather_quantize(x, idx), idx, 8)
     ops.dequantize_rows(*ops.quantize_rows(x))
     ops.group_norms_sq(x.reshape(2, 2, 8))
+    ops.ssd_chunk_scan(torch.ones(1, 8, 2, 4), torch.ones(1, 8, 2),
+                       -torch.ones(2), torch.ones(1, 8, 3),
+                       torch.ones(1, 8, 3), chunk=4)
     assert ops.launch_counts() == {
         "fused_prox_sgd": 0, "fused_prox_sgd_dyn": 0, "gather_groups": 0,
         "quantize_rows": 0, "gather_quantize": 0, "gather_dequantize": 0,
         "quantize_pack_q4": 0, "gather_quantize_q4": 0,
-        "unpack_gather_dequantize_q4": 0, "group_norms_sq": 0}
+        "unpack_gather_dequantize_q4": 0, "group_norms_sq": 0,
+        "ssd_chunk_scan": 0}
 
 
 # ---------------------------------------------------------------------------

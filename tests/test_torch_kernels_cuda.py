@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import compact  # noqa: E402
 from repro_torch.kernels import fused_prox_sgd as tfp  # noqa: E402
 from repro_torch.kernels import group_norms  # noqa: E402
-from repro_torch.kernels import ops, ref, wire  # noqa: E402
+from repro_torch.kernels import ops, ref, ssd_scan, wire  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -384,3 +384,103 @@ def test_smoke_rounds_are_bit_equal(dev):
         assert torch.equal(a["z"][0][key], b["z"][0][key]), key
     for rule in a["masks"]:
         assert torch.equal(a["masks"][rule]["idx"], b["masks"][rule]["idx"])
+
+
+# (Bt, T, H, P, N, chunk): chip_smoke.py phase 6a's shape, Q not dividing T
+# (T 1000: Q 250), H not a multiple of the TPU kernel's head block with
+# Bt = 1, Q = 64, and the tiny shapes of tests/test_kernels.py
+SSD_CASES = [(4, 4096, 48, 64, 128, 256), (1, 1000, 5, 64, 128, 256),
+             (2, 200, 48, 64, 128, 64), (2, 64, 8, 16, 16, 16),
+             (2, 48, 4, 8, 8, 8)]
+
+
+def _ssd_operands(Bt, T, H, P, N, dtype, dev, dt_shift=-3.0, seed=0):
+    x = _randn((Bt, T, H, P), seed, dev, 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(_randn((Bt, T, H), seed + 1, dev)
+                                      + dt_shift)
+    A = -torch.exp(_randn((Bt, H), seed + 2, dev, 0.3))
+    Bm = _randn((Bt, T, N), seed + 3, dev).to(dtype)
+    Cm = _randn((Bt, T, N), seed + 4, dev).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bt,T,H,P,N,chunk", SSD_CASES)
+def test_ssd_chunk_scan_kernel_equals_plain(Bt, T, H, P, N, chunk, dtype,
+                                            dev):
+    """Within tests/test_kernels.py's rtol = atol = 2e-4 of the plain
+    version, and the same bits on a second launch."""
+    a = _ssd_operands(Bt, T, H, P, N, dtype, dev)
+    ops.reset_launch_counts()
+    y, h = ssd_scan.ssd_chunk_scan(*a, chunk=chunk)
+    y2, h2 = ssd_scan.ssd_chunk_scan(*a, chunk=chunk)
+    assert ops.launch_counts()["ssd_chunk_scan"] == 2
+    yr, hr = ref.ssd_chunk_scan_ref(*a, chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), yr.float(), rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h, hr, rtol=2e-4, atol=2e-4)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+def test_ssd_chunk_scan_kernel_past_exp_range_is_finite(dev):
+    """Chunks whose sum of dt*|A| passes 88: the terms above the diagonal
+    are skipped, never exp'd, so the output is finite and equals the
+    plain version."""
+    a = _ssd_operands(2, 512, 4, 64, 128, torch.float32, dev, dt_shift=3.0)
+    y, h = ssd_scan.ssd_chunk_scan(*a, chunk=256)
+    yr, hr = ref.ssd_chunk_scan_ref(*a, 256)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    torch.testing.assert_close(y, yr, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h, hr, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_chunk_scan_refuses_bad_operands(dev):
+    x, dt, A, Bm, Cm = _ssd_operands(2, 64, 4, 8, 8, torch.float32, dev)
+    for bad in ((x, dt, A[0], Bm, Cm), (x, dt.double(), A, Bm, Cm),
+                (x, dt, A, Bm.bfloat16(), Cm),
+                (x.transpose(1, 2), dt, A, Bm, Cm)):
+        with pytest.raises(ValueError):
+            ssd_scan.ssd_chunk_scan(*bad, chunk=16)
+
+
+def test_mamba_smoke_rounds_are_bit_equal(dev):
+    """Two mamba2 smoke rounds from one seed on the card (the scan kernel
+    inside ``vmap(grad_and_value)``) give the same bits, one of them under
+    ``torch.use_deterministic_algorithms``."""
+    from repro_torch.configs import (ConsensusSpec, HsadmmConfig,
+                                     ShapeConfig, get_config)
+    from repro_torch.data.pipeline import batches, superbatches
+    from repro_torch.data.synthetic import make_stream
+    from repro_torch.models import build
+    from repro_torch.train.engine import Engine
+
+    hp = HsadmmConfig(local_steps=2, wire_inter="compact+q8")
+    cfg = get_config("mamba2-780m", smoke=True).replace(hsadmm=hp)
+    shape = ShapeConfig("s", "train", 64, 8)
+    runs = []
+    for strict in (False, True):
+        eng = Engine(build(cfg), shape, consensus=ConsensusSpec((2, 2), 1),
+                     device=dev)
+        sb = next(superbatches(batches(make_stream(cfg, shape, 4,
+                                                   device=dev)), 2))
+        st = eng.init_state_fn()(0)
+        ops.reset_launch_counts()
+        torch.use_deterministic_algorithms(strict)
+        try:
+            st, m = eng.round_step_fn(frozen=False)(
+                st, sb, torch.tensor(1e-3, device=dev))
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        assert ops.launch_counts()["ssd_chunk_scan"] == 2 * cfg.n_layers
+        runs.append((st, m))
+    (a, ma), (b, mb) = runs
+    assert torch.isfinite(ma.losses).all()
+    assert torch.equal(ma.losses, mb.losses)
+    for key in a["theta"]:
+        assert torch.equal(a["theta"][key], b["theta"][key]), key
+        assert torch.equal(a["z"][0][key], b["z"][0][key]), key
+    assert torch.equal(a["masks"]["ssm_heads"]["idx"],
+                       b["masks"]["ssm_heads"]["idx"])

@@ -351,3 +351,29 @@ def test_reconfig_train_final_state_matches_reference(runs):
         _close(tz, jz, rtol=1e-3, atol=1e-5)
     for rule, m in ref["masks"].items():
         assert torch.equal(tst["masks"][rule]["idx"], m["idx"]), rule
+
+
+def test_run_reconfig_patience_overrides_the_config():
+    """``RunConfig.reconfig_patience`` (fault F): set, it replaces
+    ``HsadmmConfig.reconfig_patience`` (1 here), as in the reference; the
+    run then waits two frozen rounds before it reconfigures."""
+    jb = j_build(get_config("resnet18", smoke=True).replace(hsadmm=LOOP_HP))
+    p0 = jax.device_get(jb.init(jax.random.PRNGKey(0)))
+    from repro.train.loop import RunConfig as JRunConfig
+    with jax_reference(ieee_quantize=True):
+        _, jrep = j_train(
+            JEngine(jb, make_host_mesh(), LOOP_SHAPE, consensus=LEVELS),
+            JRunConfig(outer_iters=5, shape=LOOP_SHAPE, eta=1e-2,
+                       reconfig=True, reconfig_patience=2, log=None))
+    tb = t_build(t_get_config("resnet18", smoke=True).replace(
+        hsadmm=LOOP_HP))
+    tb = dataclasses.replace(
+        tb, init=lambda gen, device: convert.params_from_jax(p0, device))
+    _, trep = train(Engine(tb, LOOP_SHAPE, consensus=LEVELS, device="cpu"),
+                    RunConfig(outer_iters=5, shape=LOOP_SHAPE, eta=1e-2,
+                              reconfig=True, reconfig_patience=2, log=None))
+    assert trep.executables == jrep.executables == \
+        ["dynamic"] * 2 + ["frozen"] * 2 + ["reconfigured"]
+    assert trep.reconfigured_at == jrep.reconfigured_at == 4
+    assert trep.comm_bytes_internode == jrep.comm_bytes_internode
+    np.testing.assert_allclose(trep.losses, jrep.losses, rtol=1e-3)

@@ -131,3 +131,23 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 if n.split(".")[0] in ("jax", "jaxlib", "repro"):
                     bad.append(f"{f.relative_to(ROOT)}: {n}")
     assert not bad, bad
+
+
+@pytest.mark.parametrize("preset", [None, ":16:8"])
+def test_cublas_workspace_is_fixed_at_import(preset):
+    """Importing the port fixes cuBLAS's workspace before any CUDA work
+    (cuBLAS reads it once, when the first product creates its handle),
+    and a value the user set wins."""
+    import os
+    import subprocess
+    import sys
+    env = {k: v for k, v in os.environ.items()
+           if k != "CUBLAS_WORKSPACE_CONFIG"}
+    if preset is not None:
+        env["CUBLAS_WORKSPACE_CONFIG"] = preset
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run(
+        [sys.executable, "-c", "import os, repro_torch; "
+         "print(os.environ['CUBLAS_WORKSPACE_CONFIG'])"],
+        env=env, capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.strip() == (preset or ":4096:8")
