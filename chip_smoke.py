@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py           # every phase
+    python3 chip_smoke.py --ssd     # phases 1 and 6 alone (no result line)
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -53,8 +54,10 @@ Phases (any failure exits non-zero and prints no result line):
 4b. the same for one reconfigured resnet-smoke round over compact+q4;
 6. ssd_chunk_scan against its plain version in f32 and bf16 at phase 6a's
    shape and edge shapes (Q not dividing T, H = 5 with Bt = 1, Q = 64,
-   chunks past exp's range), rtol = atol = 2e-4 and the same bits on a
-   second launch, timed against the plain version and the bound;
+   chunks past exp's range): bit-equal (hence within rtol = atol = 2e-4)
+   and the same bits on a second launch; timed against the plain version
+   and the bound, with the device time of each of its kernels (phase 1
+   printed their registers, shared memory and spills);
 6a. H-SADMM training of mamba2-780m at full width with 4 of its 48
    layers (213,049,408 parameters, f32) through the port's ``train``: W=4
    at levels (2, 2), compact+q8 inter-node wire, one 4096-token sequence
@@ -62,7 +65,9 @@ Phases (any failure exits non-zero and prints no result line):
    round 2; finite losses, the reference's bytes, per round 32 scan, 136
    prox, 17 quantize and 18 gather launches and 9 group-norm launches in
    a dynamic round; peak memory under 60 GB;
-6d. one more frozen round of 6a's path under the profiler;
+6d. one more frozen round of 6a's path under the profiler, with the
+   device time, launches and bytes bound of the hand kernels at its
+   operands (group_norms_sq on one dynamic round's score views);
 6b. phase 6a again, bit-equal; its first two rounds under
    ``torch.use_deterministic_algorithms``, kernel route against plain
    route, bit-equal as well;
@@ -137,15 +142,68 @@ def device_events(fn, reps: int):
 
 def kernel_ms(fn, reps: int) -> tuple[float, float]:
     """(device ms, stream ms) per run of ``fn()``: the summed duration of
-    the kernels it launches (profiler), and the CUDA-event time of the
-    whole sequence, host gaps between launches included.  Raises when the
-    profiler records no device events: the stream time is no device
-    time."""
+    the kernels it launches (profiler, ``kernel_split``), and the
+    CUDA-event time of the whole sequence, host gaps between launches
+    included."""
     stream = cuda_ms(fn, reps)
+    return sum(v[0] for v in kernel_split(fn, reps).values()), stream
+
+
+def kernel_split(fn, reps: int) -> dict:
+    """{kernel: (device ms, launches) per run of ``fn()``} from one profiler
+    window over ``reps`` runs, by kernel name (template arguments kept,
+    parameter lists and namespaces dropped): each kernel's mean duration
+    times its launches per run.  The profiler can drop an event of a long
+    window, so the launches per run are its recorded ones over ``reps``,
+    rounded.  Raises when it records no device events: the stream time is
+    no device time."""
     evs = device_events(fn, reps)
     if not evs:
         raise RuntimeError("the profiler recorded no device events")
-    return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / reps, stream
+    out = {}
+    for e in evs:
+        name = e.name.replace("(anonymous namespace)::", "") \
+            .removeprefix("void ").split("(")[0].split("::")[-1]
+        ms, n = out.get(name, (0.0, 0))
+        out[name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    split = {}
+    for k, (ms, n) in out.items():
+        per_run = max(1, round(n / reps))
+        split[k] = (ms / n * per_run, per_run)
+    return split
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its registers,
+    static shared memory and spill bytes (stores/loads)."""
+    import re
+    out, name, spill = [], "?", "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), "?"
+            g = re.match(r"_ZN(\d+)_GLOBAL__N_", name)
+            if g:   # a kernel of the anonymous namespace: its own name
+                rest = name[g.end(1) + int(g.group(1)):]
+                n = re.match(r"\d+", rest)
+                i = n.end() + int(n.group())
+                args = rest[i:].split("EE")[0].lstrip("I")
+                name = rest[n.end():i] + (
+                    "<" + args.replace("13__nv_bfloat16", "bf16").replace(
+                        "Lb1", "1").replace("Lb0", "0") + ">"
+                    if rest[i:i + 1] == "I" else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name}: {m.group(1)} registers, "
+                       f"{smem.group(1) if smem else 0} bytes static smem, "
+                       f"spill {spill} bytes")
+    return out
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -453,13 +511,14 @@ def patched(module, name, fn):
         setattr(module, name, real)
 
 
-def recorded(module, name, calls):
-    """``module.name`` wrapped so that every call's arguments are appended
-    to ``calls`` before the real function runs."""
+def recorded(module, name, calls, keep=lambda *a, **k: (a, k)):
+    """``module.name`` wrapped so that ``keep`` of every call's arguments
+    (the arguments themselves by default) is appended to ``calls`` before
+    the real function runs."""
     real = getattr(module, name)
 
     def rec(*args, **kwargs):
-        calls.append((args, kwargs))
+        calls.append(keep(*args, **kwargs))
         return real(*args, **kwargs)
     return patched(module, name, rec)
 
@@ -490,12 +549,13 @@ def plain_twins():
         yield
 
 
-def round_operands(torch, bundle, lead, dev):
+def round_operands(torch, bundle, lead, dev, idxs=None):
     """The gather and group-norm operands of one dynamic round of phase
     3's path, exactly as the round hands them to the kernel wrappers: the
     inter-node boundary's compaction of a (lead, ...) payload by every
-    rule and its zero-fill expansion, and every scored leaf's view for the
-    mask scores.  Returns (gather calls, group-norm calls)."""
+    rule (by ``idxs``, {rule: kept groups}, or a random sorted choice) and
+    its zero-fill expansion, and every scored leaf's view for the mask
+    scores.  Returns (gather calls, group-norm calls)."""
     from repro_torch.core.shrinkage import compact_params, expand_params
     from repro_torch.core.sparsity import group_scores
     from repro_torch.kernels import compact, group_norms
@@ -503,9 +563,10 @@ def round_operands(torch, bundle, lead, dev):
     gen = torch.Generator(device=dev).manual_seed(4)
     payload = {k: torch.randn((lead,) + tuple(s), generator=gen, device=dev)
                for k, s in bundle.shapes.items()}
-    idxs = {r.name: torch.sort(torch.randperm(
-        r.groups, generator=gen, device=dev)[:r.keep]).values
-        for r in plan.rules}
+    if idxs is None:
+        idxs = {r.name: torch.sort(torch.randperm(
+            r.groups, generator=gen, device=dev)[:r.keep]).values
+            for r in plan.rules}
     fulls = {r.name: r.groups for r in plan.rules}
     gathers, norms = [], []
     with recorded(compact, "gather_groups", gathers):
@@ -970,7 +1031,7 @@ def profile_round(torch, eng, state, shape, label="frozen", eta=1e-2):
     """Phases 5, 5b and 6d: one more frozen round of a trained main path
     under the profiler: device time by kernel, and the device's busy
     share of the round's device-side span.  Returns the busy share in
-    percent."""
+    percent and {kernel name: [ms, launches]} of the round."""
     from collections import defaultdict
     from repro_torch.data.pipeline import batches, superbatches
     from repro_torch.data.synthetic import make_stream
@@ -1009,14 +1070,15 @@ def profile_round(torch, eng, state, shape, label="frozen", eta=1e-2):
         low = name.lower()
         if "prox_sgd" in low:
             cats["prox_sgd kernel"] += ms
-        elif any(t in low for t in ("chunk_scan", "chunk_state", "chunk_cb",
-                                    "state_pass", "chunk_cumsum")):
+        elif any(t in low for t in ("chunk_cumsum", "transpose_chunks",
+                                    "chunk_cb", "chunk_state", "state_pass",
+                                    "chunk_inter", "chunk_intra")):
             cats["ssd_chunk_scan kernels"] += ms
         elif "quantize_rows" in low:
             cats["quantize_rows kernel"] += ms
         elif "q4" in low:
             cats["q4 wire kernels"] += ms
-        elif "gather_kernel" in low or "norms_" in low \
+        elif "namespace)::gather_kernel" in low or "norms_" in low \
                 or "gather_quantize" in low or "gather_dequantize" in low:
             cats["gather / group-norm kernels"] += ms
         elif any(t in low for t in ("conv", "xmma", "gemm", "wgrad",
@@ -1033,7 +1095,7 @@ def profile_round(torch, eng, state, shape, label="frozen", eta=1e-2):
     for name, (ms, cnt) in top:
         say(f"profile kernel ({label}): {ms:8.2f} ms x{cnt:5d} "
             f"{name[:100]}")
-    return 100 * busy / span
+    return 100 * busy / span, dict(by_name)
 
 
 def smoke_round_cpu_vs_card(torch, dev, bundle, spec, shape, keys, eta,
@@ -1444,18 +1506,23 @@ def check_ssd(torch, dev):
     """Phase 6: ssd_chunk_scan against its plain version on the card, in
     f32 and bf16, at phase 6a's shape (Bt 4 = W x 1 sequence, T 4096, H
     48, P 64, N 128, Q 256) and at edge shapes: Q not dividing T (T 1000:
-    Q 250), H 5 (not a multiple of the TPU kernel's head block of 8) with
-    Bt 1, a short T with Q 64, and chunks whose sum of dt*|A| passes 88
-    (the decay's exponent above the diagonal overflows there).  y and h
-    within rtol = atol = 2e-4, the same bits on a second launch; timed
-    against the plain version and the bound."""
+    Q 250, not a multiple of the kernel's 64-row tile), H 5 (not a
+    multiple of the kernel's head pair nor of the TPU kernel's head block
+    of 8) with Bt 1, a short T with Q 64, and chunks whose sum of dt*|A|
+    passes 88 (the decay's exponent above the diagonal overflows there).
+    y and h bit-equal to the plain version, hence within rtol = atol =
+    2e-4, and the same bits on a second launch; any failure fails the
+    phase, after every case has been reported.  Then timed at the path
+    shape against the plain version and the bound, with the device time
+    of each of its kernels from one profiler window over the timed
+    launches."""
     from repro_torch.kernels import ref, ssd_scan
     gen = torch.Generator(device=dev).manual_seed(11)
     path = (4, 4096, 48, 64, 128, 256)
     cases = [(path, -3.0), ((1, 1000, 5, 64, 128, 256), -3.0),
              ((2, 200, 48, 64, 128, 64), -3.0),
              ((2, 512, 4, 64, 128, 256), 3.0)]
-    err, equal = 0.0, True
+    err, bad = 0.0, []
     for dtype in (torch.float32, torch.bfloat16):
         for (Bt, T, H, P, N, chunk), shift in cases:
             a = _ssd_inputs(torch, Bt, T, H, P, N, dtype, gen, dev, shift)
@@ -1463,45 +1530,58 @@ def check_ssd(torch, dev):
             y2, h2 = ssd_scan.ssd_chunk_scan(*a, chunk=chunk)
             yr, hr = ref.ssd_chunk_scan_ref(*a, chunk)
             torch.cuda.synchronize()
-            if not (torch.isfinite(y.float()).all()
-                    and torch.isfinite(h).all()):
-                raise AssertionError(f"ssd_chunk_scan {(Bt, T, H, P, N)} "
-                                     f"{dtype}: non-finite output")
-            torch.testing.assert_close(y.float(), yr.float(), rtol=SSD_TOL,
-                                       atol=SSD_TOL)
-            torch.testing.assert_close(h, hr, rtol=SSD_TOL, atol=SSD_TOL)
-            if not (torch.equal(y, y2) and torch.equal(h, h2)):
-                raise AssertionError(f"ssd_chunk_scan {(Bt, T, H, P, N)} "
-                                     f"{dtype}: other bits on a second run")
-            err = max(err, _abs_err(torch, y.float(), yr.float()),
-                      _abs_err(torch, h, hr))
-            equal = equal and torch.equal(y, yr) and torch.equal(h, hr)
+            what = f"{(Bt, T, H, P, N, chunk)} {str(dtype)[6:]}"
+            e = max(_abs_err(torch, y.float(), yr.float()),
+                    _abs_err(torch, h, hr))
+            err = max(err, e)
+            checks = {
+                "finite": bool(torch.isfinite(y.float()).all()
+                               and torch.isfinite(h).all()),
+                "within 2e-4": bool(torch.allclose(
+                    y.float(), yr.float(), rtol=SSD_TOL, atol=SSD_TOL)
+                    and torch.allclose(h, hr, rtol=SSD_TOL, atol=SSD_TOL)),
+                "same bits twice": torch.equal(y, y2) and torch.equal(h, h2),
+                "bit-equal to plain": torch.equal(y, yr)
+                and torch.equal(h, hr)}
+            failed = [k for k, ok in checks.items() if not ok]
+            say(f"ssd_chunk_scan {what}: max abs err {e}"
+                + (f"; FAILED: {', '.join(failed)}" if failed else ", ok"))
+            if failed:
+                bad.append(f"{what}: {', '.join(failed)}")
             del a, y, h, y2, h2, yr, hr
+    if bad:
+        raise AssertionError("ssd_chunk_scan vs plain: " + "; ".join(bad))
     say(f"ssd_chunk_scan check: {len(cases)} shapes (phase 6a's, Q not "
         "dividing T, H = 5 with Bt = 1, Q = 64, chunks past exp's range) "
-        f"in f32 and bf16 within rtol = atol = {SSD_TOL} of the plain "
-        f"version, the same bits on a second launch; max abs err {err} "
-        f"(bit-equal to the plain version: {equal})")
+        "in f32 and bf16 bit-equal to the plain version (so within rtol = "
+        f"atol = {SSD_TOL}), the same bits on a second launch; max abs err "
+        f"{err}")
     Bt, T, H, P, N, chunk = path
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         a = _ssd_inputs(torch, Bt, T, H, P, N, dtype, gen, dev)
-        ms, stream = kernel_ms(
-            lambda: ssd_scan.ssd_chunk_scan(*a, chunk=chunk), 20)
+        fn = lambda: ssd_scan.ssd_chunk_scan(*a, chunk=chunk)  # noqa: E731
+        stream = cuda_ms(fn, 20)
+        split = kernel_split(fn, 20)
+        ms = sum(v[0] for v in split.values())
         plain_ms, _ = kernel_ms(lambda: ref.ssd_chunk_scan_ref(*a, chunk), 5)
         b_ms, b_by = ssd_bound(Bt, T, H, P, N, chunk, a[0].element_size())
         out[dtype] = (ms, stream, plain_ms, b_ms, b_by)
-        say(f"ssd_chunk_scan {str(dtype)[6:]}: Bt {Bt} T {T} H {H} P {P} N "
-            f"{N} Q {chunk}: kernel {ms:.4f} ms on the device ({stream:.4f} "
-            f"ms on the stream), plain {plain_ms:.4f} ms, no library call, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+        dn = str(dtype)[6:]
+        say(f"ssd_chunk_scan {dn}: Bt {Bt} T {T} H {H} P {P} N {N} Q "
+            f"{chunk}: kernel {ms:.4f} ms on the device ({stream:.4f} ms on "
+            f"the stream), plain {plain_ms:.4f} ms, no library call, bound "
+            f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f}% of it reached)")
+        for name, (k_ms, n) in sorted(split.items(), key=lambda t: -t[1][0]):
+            say(f"ssd_chunk_scan {dn} kernel {name}: {k_ms:.4f} ms "
+                f"({100 * k_ms / ms:.1f}%), {n} launch(es) per call")
         del a
     ms, stream, plain_ms, b_ms, b_by = out[torch.float32]
     return [{"name": "ssd_chunk_scan", "route": "cuda", "source": SSD_SRC,
              "replaces": "src/repro/kernels/ssd_scan.py:57",
              "max_abs_err": err, "ms": ms, "stream_ms": stream,
              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": None}]
+             "library_ms": None, "bf16_ms": out[torch.bfloat16][0]}]
 
 
 def mamba_engine(torch, dev, layers=MAMBA_LAYERS, smoke=False):
@@ -1577,6 +1657,67 @@ def train_mamba(torch, dev):
     return r
 
 
+def profile_mamba(torch, mamba, dev):
+    """Phase 6d: one more frozen round of phase 6a's path under the
+    profiler (``profile_round``), with the hand kernels' operands recorded:
+    each hand kernel's device time and launches in the round beside its
+    bytes bound at those operands (the formulas of phase 2), and
+    group_norms_sq, which a frozen round does not run, timed on one
+    dynamic round's score views (``round_operands``, 2 nodes).  Returns
+    the busy share."""
+    from repro_torch.kernels import compact, group_norms, wire
+    from repro_torch.kernels import fused_prox_sgd as fp
+    eng = mamba["eng"]
+    # (elements, bytes at the phase 2 formula) of each call, not the
+    # operands themselves: holding those would keep the round's gradients
+    sized = {
+        "fused_prox_sgd_dyn": lambda x, *a, **k: (
+            x.numel(), 28.0 * x.numel() + 4.0 * x.shape[0]),
+        "quantize_rows": lambda x, *a, **k: (
+            x.numel(), 5.0 * x.numel() + 4.0 * x.shape[0]),
+        "gather_groups": lambda x, idx, *a, **k: (
+            idx.shape[-1] * x.numel() // x.shape[1],
+            2.0 * idx.shape[-1] * x.numel() // x.shape[1] * x.element_size()
+            + 4.0 * idx.numel())}
+    calls = {name: [] for name in sized}
+    with contextlib.ExitStack() as st:
+        for mod, name in ((fp, "fused_prox_sgd_dyn"),
+                          (wire, "quantize_rows"),
+                          (compact, "gather_groups")):
+            st.enter_context(recorded(mod, name, calls[name], sized[name]))
+        busy, by_name = profile_round(torch, eng, mamba["state"],
+                                      mamba["shape"], label="mamba2 frozen",
+                                      eta=1e-3)
+    rows = {}
+    for name, cs in calls.items():   # the warm-up round and the profiled one
+        cs = cs[:len(cs) // 2]
+        n, nbytes = sum(c[0] for c in cs), sum(c[1] for c in cs)
+        ops, tag = {"fused_prox_sgd_dyn": (8.0 * n, "prox_sgd"),
+                    "quantize_rows": (7.0 * n, "quantize_rows_kernel"),
+                    "gather_groups": (0.0, "namespace)::gather_kernel")}[name]
+        ms = sum(v[0] for k, v in by_name.items() if tag in k)
+        cnt = sum(v[1] for k, v in by_name.items() if tag in k)
+        rows[name] = (ms, cnt, len(cs), n, *bound(nbytes, ops))
+    _, norms = round_operands(
+        torch, eng.bundle, 2, dev,
+        {k: m["idx"] for k, m in mamba["state"]["masks"].items()})
+    n = sum(v.numel() for v in norms)
+    nbytes = 4.0 * n + 4.0 * sum(v.shape[0] * v.shape[1] for v in norms)
+    ms, _ = kernel_ms(lambda: [group_norms.group_norms_sq(v)
+                               for v in norms], 5)
+    rows["group_norms_sq"] = (ms, len(norms), len(norms), n,
+                              *bound(nbytes, 2.0 * n))
+    del norms
+    for name, (ms, cnt, ncalls, n, b_ms, b_by) in rows.items():
+        say(f"mamba2 kernel {name}: {ms:.4f} ms on the device in "
+            f"{cnt} launches ({ncalls} wrapper calls) per "
+            + ("dynamic round (timed on its score views)"
+               if name == "group_norms_sq" else "frozen round")
+            + f", {n} elements; bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.1f}% of it reached")
+    return busy
+
+
 def _slim(r):
     """Keep what a later comparison reads: the final theta and z."""
     r["state"] = {"theta": r["state"]["theta"], "z": r["state"]["z"]}
@@ -1616,7 +1757,9 @@ def smoke_mamba_cpu_vs_card(torch, dev):
                             ("tokens",), 1e-3, "mamba2 smoke round")
 
 
-def main() -> int:
+def main(argv) -> int:
+    if argv not in ([], ["--ssd"]):
+        return fail(f"usage: chip_smoke.py [--ssd] (got {argv})")
     try:
         import torch
     except ImportError:
@@ -1643,9 +1786,14 @@ def main() -> int:
         say(f"phase 1 build: {time.perf_counter() - t0:.2f} s "
             f"({', '.join(sorted(logs))})")
         for name, log in logs.items():
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    say(f"  {name}: {line.strip()}")
+            for line in ptxas_lines(log):
+                say(f"  ptxas {name}: {line}")
+        if argv == ["--ssd"]:   # phase 6 alone: the scan kernel
+            kernels = check_ssd(torch, dev)
+            for line in smi:
+                say(line)
+            say(json.dumps({"kernels": kernels}))
+            return 0
 
         bundle = build(get_config("resnet18"))
         budgets = {r.name: budget(r, MaskSyncConfig()) for r in
@@ -1678,7 +1826,8 @@ def main() -> int:
         route_vs_plain(torch, dev)
         say("phase 3e kernel route vs plain route: ok")
 
-        busy = profile_round(torch, full["eng"], full["state"], full["shape"])
+        busy, _ = profile_round(torch, full["eng"], full["state"],
+                                full["shape"])
         rep, peak = full["rep"], full["peak"]
         del full
         say("phase 5 profile: ok")
@@ -1692,8 +1841,8 @@ def main() -> int:
         del rc2
         say("phase 3b determinism: ok")
 
-        rc_busy = profile_round(torch, rc["eng"], rc["state"], rc["shape"],
-                                label="reconfigured")
+        rc_busy, _ = profile_round(torch, rc["eng"], rc["state"],
+                                   rc["shape"], label="reconfigured")
         rc_totals = rc["totals"]
         del rc
         say("phase 5b profile: ok")
@@ -1712,9 +1861,7 @@ def main() -> int:
             mamba["totals"]
         say(f"phase 6a train mamba2: ok, launches {m_totals}")
 
-        m_busy = profile_round(torch, mamba["eng"], mamba["state"],
-                               mamba["shape"], label="mamba2 frozen",
-                               eta=1e-3)
+        m_busy = profile_mamba(torch, mamba, dev)
         say("phase 6d profile: ok")
 
         determinism_mamba(torch, dev, _slim(mamba))
@@ -1772,4 +1919,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

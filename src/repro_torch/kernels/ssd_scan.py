@@ -7,8 +7,11 @@ A carries one row per batch row: under ``vmap`` over ADMM workers each
 worker's A differs, and the vmap rule folds the workers into Bt.  x, B and
 C are f32 or bf16; dt and A f32.  A tensor on the CPU takes the plain
 version (``ref.ssd_chunk_scan_ref``); a CUDA tensor launches the kernel or
-raises.  The wrapper allocates the kernel's f32 scratch (the chunk sums of
-dt*A, the chunks' C.B^T and their states).  ``launches`` counts launches.
+raises.  The wrapper allocates the kernel's f32 workspace, of the size the
+library asks for (the chunk sums of dt*A and the chunks' decays, B and C
+transposed per chunk, the chunks' C.B^T and their states, and for bf16
+the operands widened to f32), on the caller's stream.  ``launches`` counts
+launches.
 """
 from __future__ import annotations
 
@@ -27,8 +30,10 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 def _lib():
     lib = _build.library("ssd_scan")
     if lib.ssd_chunk_scan.argtypes is None:
-        lib.ssd_chunk_scan.argtypes = [_P] * 10 + [_I64] * 6 + [ctypes.c_int,
-                                                               _P]
+        lib.ssd_chunk_scan_workspace.argtypes = [_I64] * 6 + [ctypes.c_int]
+        lib.ssd_chunk_scan_workspace.restype = _I64
+        lib.ssd_chunk_scan.argtypes = [_P] * 8 + [_I64] * 6 + [ctypes.c_int,
+                                                              _P]
         lib.ssd_chunk_scan.restype = ctypes.c_int
     return lib
 
@@ -60,18 +65,17 @@ def ssd_chunk_scan(x, dt, A, Bm, Cm, *, chunk: int):
     if min(Bt, T, H, P, N) <= 0:
         raise ValueError(f"{what}: empty operand {tuple(x.shape)}, N={N}")
     Q = ref.chunk_len(T, chunk)
-    nc = T // Q
+    bf16 = int(x.dtype == torch.bfloat16)
+    lib = _lib()
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     h = torch.empty((Bt, H, N, P), **f32)
-    cum = torch.empty((Bt, T, H), **f32)
-    cb = torch.empty((Bt, nc, Q, Q), **f32)
-    states = torch.empty((Bt, nc, H, N, P), **f32)
-    err = _lib().ssd_chunk_scan(
+    work = torch.empty(
+        (lib.ssd_chunk_scan_workspace(Bt, T, H, P, N, Q, bf16),), **f32)
+    err = lib.ssd_chunk_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), y.data_ptr(), h.data_ptr(), cum.data_ptr(),
-        cb.data_ptr(), states.data_ptr(), Bt, T, H, P, N, Q,
-        int(x.dtype == torch.bfloat16), _stream(x))
+        Cm.data_ptr(), y.data_ptr(), h.data_ptr(), work.data_ptr(), Bt, T,
+        H, P, N, Q, bf16, _stream(x))
     _build.check(err, what)
     launches[what] += 1
     return y, h

@@ -387,11 +387,17 @@ def test_smoke_rounds_are_bit_equal(dev):
 
 
 # (Bt, T, H, P, N, chunk): chip_smoke.py phase 6a's shape, Q not dividing T
-# (T 1000: Q 250), H not a multiple of the TPU kernel's head block with
-# Bt = 1, Q = 64, and the tiny shapes of tests/test_kernels.py
+# (T 1000: Q 250, not a multiple of the kernel's 64-row tile), H not a
+# multiple of the TPU kernel's head block with Bt = 1, Q = 64, the tiny
+# shapes of tests/test_kernels.py, and the edges of the kernel's tiling:
+# H 7 (not a multiple of its head pair) with P 24 and N 40 (not multiples
+# of its 8 x 8 register tile) and Q 150 (three row tiles, the last
+# partial), P 6 and N 10 (rows moved 4 bytes at a time), P 80 (two tiles
+# of 64 p)
 SSD_CASES = [(4, 4096, 48, 64, 128, 256), (1, 1000, 5, 64, 128, 256),
              (2, 200, 48, 64, 128, 64), (2, 64, 8, 16, 16, 16),
-             (2, 48, 4, 8, 8, 8)]
+             (2, 48, 4, 8, 8, 8), (1, 300, 7, 24, 40, 150),
+             (2, 60, 3, 6, 10, 20), (1, 256, 3, 80, 36, 128)]
 
 
 def _ssd_operands(Bt, T, H, P, N, dtype, dev, dt_shift=-3.0, seed=0):
@@ -421,6 +427,20 @@ def test_ssd_chunk_scan_kernel_equals_plain(Bt, T, H, P, N, chunk, dtype,
     torch.testing.assert_close(y.float(), yr.float(), rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(h, hr, rtol=2e-4, atol=2e-4)
     assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bt,T,H,P,N,chunk", SSD_CASES)
+def test_ssd_chunk_scan_kernel_bit_equals_plain(Bt, T, H, P, N, chunk, dtype,
+                                                dev):
+    """y and h bit for bit the plain version's: both sum every product in
+    step order with fused multiply-adds from 0 and form every factor by
+    the same expression (csrc/ssd_scan.cu says how)."""
+    a = _ssd_operands(Bt, T, H, P, N, dtype, dev, seed=7)
+    y, h = ssd_scan.ssd_chunk_scan(*a, chunk=chunk)
+    yr, hr = ref.ssd_chunk_scan_ref(*a, chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y, yr) and torch.equal(h, hr)
 
 
 def test_ssd_chunk_scan_kernel_past_exp_range_is_finite(dev):
