@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py           # every phase
     python3 chip_smoke.py --ssd     # phases 1 and 6 alone (no result line)
+    python3 chip_smoke.py --wire    # phase 1 and the quantize_rows and
+                                    # group_norms_sq checks at the ResNet
+                                    # and Mamba2 operands (no result line)
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -12,13 +15,18 @@ Phases (any failure exits non-zero and prints no result line):
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (prox-SGD: every resnet18 leaf at W=16, relative
    error <= 1e-6; quantize_rows and the three q4 kernels: every compact
-   inter-node payload leaf, plus odd-C, 1-D and NaN/inf rows, bit-equal;
+   inter-node payload leaf, plus odd-C, 1-D and NaN/inf rows (for
+   quantize_rows: on each of its paths, and a base 4 bytes off
+   alignment), bit-equal;
    gather_groups: one dynamic round's compactions and expansions, prime
    R, B = 1, odd C and int8/uint8/bf16, bit-equal; gather_quantize and
    gather_dequantize: the codec API's compacted leaves, odd-C, one-row
    and NaN/inf rows, bit-equal; group_norms_sq: one dynamic round's score
-   views, K = 1, K minor, transposed and bf16, rtol 1e-5 and the same
-   bits twice), and time kernel, plain version, library call and bound;
+   views, K = 1, K minor, C minor, a Mamba2-like view, fan-ins its slices
+   do not divide, an unaligned base and bf16, rtol 1e-5 and the same bits
+   twice), and time kernel, plain version, library call and bound (for
+   quantize_rows also per row width, for group_norms_sq per view beside
+   its launch plan);
 3. train full-width ResNet-18 with H-SADMM through the port's ``train``:
    16 workers stacked on the card, levels (4, 4), compact+q8 inter-node
    wire, 32 images per worker, 6 rounds of 8 local steps, masks frozen at
@@ -67,11 +75,17 @@ Phases (any failure exits non-zero and prints no result line):
    a dynamic round; peak memory under 60 GB;
 6d. one more frozen round of 6a's path under the profiler, with the
    device time, launches and bytes bound of the hand kernels at its
-   operands (group_norms_sq on one dynamic round's score views);
+   operands (group_norms_sq on one dynamic round's score views), and the
+   library calls beside group_norms_sq (einsum) and gather_groups
+   (index_select) on one dynamic round's operands;
 6b. phase 6a again, bit-equal; its first two rounds under
    ``torch.use_deterministic_algorithms``, kernel route against plain
    route, bit-equal as well;
 6c. one mamba2 smoke round on the card and on the CPU from one state.
+
+``--wire`` runs phase 1, then phase 2's quantize_rows and group_norms_sq
+checks and times at the ResNet-18 operands and at Mamba2's (phase 6a's
+configuration, seeded synthetic data of the shapes phase 6d records).
 
 It prints one fact per line, then the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line
@@ -155,10 +169,13 @@ def kernel_split(fn, reps: int) -> dict:
     parameter lists and namespaces dropped): each kernel's mean duration
     times its launches per run.  The profiler can drop an event of a long
     window, so the launches per run are its recorded ones over ``reps``,
-    rounded.  Raises when it records no device events: the stream time is
-    no device time."""
-    evs = device_events(fn, reps)
-    if not evs:
+    rounded.  Raises when three windows record no device events: the
+    stream time is no device time."""
+    for _ in range(3):   # a short window now and then records none
+        evs = device_events(fn, reps)
+        if evs:
+            break
+    else:
         raise RuntimeError("the profiler recorded no device events")
     out = {}
     for e in evs:
@@ -280,9 +297,12 @@ def check_prox(torch, shapes, W, dev):
     return out
 
 
-def check_quantize(torch, payload_shapes, lead, dev):
-    """quantize_rows vs the plain version on every compact payload leaf
-    as the q8 ring views it: (lead, rows, C)."""
+def check_quantize(torch, payload_shapes, lead, dev, label="resnet18"):
+    """quantize_rows vs the plain version, bit for bit, on every compact
+    payload leaf as the q8 ring views it, (lead * rows, C), and on edge
+    cases of each path of ``wire.quantize_plan`` (rows held in registers
+    and streamed, 16-byte and scalar loads, a base 4 bytes off alignment)
+    with NaN and inf rows; timed over all leaves and per width class."""
     from repro_torch.kernels import ref, wire
     gen = torch.Generator(device=dev).manual_seed(2)
     xs = []
@@ -291,35 +311,50 @@ def check_quantize(torch, payload_shapes, lead, dev):
              shape[-1] if len(shape) >= 1 else 1)
         xs.append(torch.randn((v[0] * v[1], v[2]), generator=gen,
                               device=dev) * 0.05)
+    edges = []
+    for C in (10, 64, 1536, 1537, 4096):
+        x = torch.randn((37, C), generator=gen, device=dev)
+        x[3, 1], x[5, -1], x[7, 0] = float("nan"), float("inf"), \
+            -float("inf")
+        edges.append(x)
+    buf = torch.randn((37 * 1536 + 1,), generator=gen, device=dev)
+    edges.append(buf[1:].view(37, 1536))
     err = 0.0
-    for x in xs:
+    for x in xs + edges:
         q, s = wire.quantize_rows(x)
         qp, sp = ref.quantize_rows_ref(x)
-        if not (torch.equal(q, qp) and torch.equal(s, sp)):
+        if not torch.equal(q, qp):
             raise AssertionError(f"quantize_rows vs plain differ at "
                                  f"{tuple(x.shape)}")
-        err = max(err, (q.int() - qp.int()).abs().max().item(),
-                  (s - sp).abs().max().item())
-    # a payload row holding NaN or inf keeps the plain version's values
-    bad = xs[0].clone()
-    bad[0, 0], bad[-1, -1] = float("nan"), float("inf")
-    q, s = wire.quantize_rows(bad)
-    qp, sp = ref.quantize_rows_ref(bad)
-    if not torch.equal(q, qp):
-        raise AssertionError("quantize_rows vs plain differ on a NaN/inf row")
-    torch.testing.assert_close(s, sp, rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(s, sp, rtol=0, atol=0, equal_nan=True)
+        err = max(err, (q.int() - qp.int()).abs().max().item())
     torch.cuda.synchronize()
-    say(f"quantize_rows check: {len(xs)} payload leaves bit-equal (max abs "
-        f"err {err}), NaN and inf rows equal")
-    n = sum(x.numel() for x in xs)
+    say(f"quantize_rows check ({label}): {len(xs)} payload leaves and "
+        f"{len(edges)} edge cases (C = 10, 64, 1536, 1537, 4096 with NaN "
+        "and inf rows, a base 4 bytes off alignment) bit-equal to the "
+        f"plain version (max abs err {err})")
     rows = sum(x.shape[0] for x in xs)
-    nbytes = 5.0 * n + 4.0 * rows
-    b_ms, b_by = bound(nbytes, 7.0 * n)
+    n = sum(x.numel() for x in xs)
+    b_ms, b_by = bound(5.0 * n + 4.0 * rows, 7.0 * n)
     ms, stream = kernel_ms(lambda: [wire.quantize_rows(x) for x in xs], 20)
     plain_ms, _ = kernel_ms(lambda: [ref.quantize_rows_ref(x) for x in xs], 5)
-    say(f"quantize_rows: {len(xs)} leaves, {n} elements: kernel {ms:.4f} ms "
-        f"on the device ({stream:.4f} ms on the stream), plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    say(f"quantize_rows ({label}): {len(xs)} leaves, {n} elements: kernel "
+        f"{ms:.4f} ms on the device ({stream:.4f} ms on the stream), plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{100 * b_ms / ms:.1f}% of it reached)")
+    plan = getattr(wire, "quantize_plan", None)
+    for C in sorted({x.shape[1] for x in xs}):
+        cls = [x for x in xs if x.shape[1] == C]
+        R = sum(x.shape[0] for x in cls)
+        c_ms = sum(v[0] for v in kernel_split(
+            lambda: [wire.quantize_rows(x) for x in cls], 20).values())
+        c_b, _ = bound(5.0 * R * C + 4.0 * R, 7.0 * R * C)
+        how = sorted({plan(x.shape[0], C, x.data_ptr()) for x in cls}) \
+            if plan else "n/a"
+        say(f"quantize_rows ({label}) C = {C}: {len(cls)} leaves, {R} rows, "
+            f"plan (lanes, nv, vec) {how}: kernel "
+            f"{c_ms:.4f} ms, bound {c_b:.4f} ms ({100 * c_b / c_ms:.1f}% "
+            "of it reached)")
     return [{"name": "quantize_rows", "route": "cuda", "source": WIRE_SRC,
              "replaces": "src/repro/kernels/wire.py:53", "max_abs_err": err,
              "ms": ms, "stream_ms": stream, "plain_ms": plain_ms,
@@ -563,10 +598,15 @@ def round_operands(torch, bundle, lead, dev, idxs=None):
     gen = torch.Generator(device=dev).manual_seed(4)
     payload = {k: torch.randn((lead,) + tuple(s), generator=gen, device=dev)
                for k, s in bundle.shapes.items()}
+    def random_idx(r):   # the shape of the rule's mask indices
+        stack = tuple(bundle.shapes[r.leaves[0].key][:r.stack_ndims])
+        k = r.keep // r.shards
+        idx = torch.stack([torch.sort(torch.randperm(
+            r.groups // r.shards, generator=gen, device=dev)[:k]).values
+            for _ in range(math.prod(stack) * r.shards)])
+        return idx.reshape(stack + ((r.shards, k) if r.shards > 1 else (k,)))
     if idxs is None:
-        idxs = {r.name: torch.sort(torch.randperm(
-            r.groups, generator=gen, device=dev)[:r.keep]).values
-            for r in plan.rules}
+        idxs = {r.name: random_idx(r) for r in plan.rules}
     fulls = {r.name: r.groups for r in plan.rules}
     gathers, norms = [], []
     with recorded(compact, "gather_groups", gathers):
@@ -736,22 +776,38 @@ def _einsum(torch, v):
                         "gcab,gcab->gc", v, v)
 
 
-def check_group_norms(torch, norms, dev):
+def _norms_bound(torch, views):
+    """(ms, "bytes" | "operations") of the squared group norms of
+    ``views``: each input element read once, each f32 output written
+    once; one multiply-add an element."""
+    n = sum(v.numel() for v in views)
+    nbytes = sum(v.numel() * v.element_size() + 4.0 * v.shape[0]
+                 * v.shape[1] for v in views)
+    return bound(nbytes, 2.0 * n)
+
+
+def check_group_norms(torch, norms, dev, label="resnet18"):
     """group_norms_sq vs the plain version within rtol 1e-5, and the same
     bits on a second run, on one dynamic round's score views
-    (``round_operands``), K = 1, a one-channel view, K minor, a
-    transposed view and bf16; timed against the plain version and
-    ``torch.einsum``."""
+    (``round_operands``), K = 1, a one-channel view, K minor, C minor,
+    a Mamba2-like two-dim fan-in and fan-ins the slices do not divide, a
+    base 4 bytes off alignment, f32 and bf16; timed over all views
+    against the plain version and ``torch.einsum``, and per view beside
+    its plan."""
     from repro_torch.kernels import group_norms, ref
     gen = torch.Generator(device=dev).manual_seed(7)
     views = norms
-    t = torch.randn((4, 300, 64), generator=gen, device=dev)
-    extra = [torch.randn((4, 8, 1), generator=gen, device=dev),
-             torch.randn((4, 1, 100), generator=gen, device=dev),
-             torch.randn((4, 512, 10), generator=gen, device=dev),
-             t.transpose(1, 2),
-             torch.randn((3, 16, 9), generator=gen, device=dev).to(
-                 torch.bfloat16)]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    t = rnd(4, 300, 64)
+    extra = [rnd(4, 8, 1), rnd(4, 1, 100), rnd(4, 512, 10), t.transpose(1, 2),
+             rnd(3, 16, 9).to(torch.bfloat16),
+             rnd(2, 1536, 6, 64).permute(0, 2, 1, 3),      # Mamba2-like
+             rnd(2, 5, 98301), rnd(2, 3001, 30).transpose(1, 2),
+             rnd(2 * 5 * 4097 + 1)[1:].view(2, 5, 4097),   # 4 bytes off
+             rnd(2, 1536, 6, 64).permute(0, 2, 1, 3).to(torch.bfloat16),
+             rnd(4, 4608, 64).transpose(1, 2).to(torch.bfloat16)]
     err = 0.0
     for v in views + extra:
         out = group_norms.group_norms_sq(v)
@@ -763,24 +819,41 @@ def check_group_norms(torch, norms, dev):
         err = max(err, _abs_err(torch, out, plain))
     torch.cuda.synchronize()
     minor = sum(v.stride(1) == 1 for v in views)
-    say(f"group_norms_sq check: one dynamic round's {len(views)} score views "
-        f"({minor} channel-minor, {sum(v.ndim == 4 for v in views)} with a "
-        "two-dim fan-in), K = 1, one channel, K minor, transposed and bf16 "
-        "within rtol 1e-5 of the plain version and the same bits on a "
-        f"second run; max abs err {err}")
+    say(f"group_norms_sq check ({label}): one dynamic round's {len(views)} "
+        f"score views ({minor} channel-minor, "
+        f"{sum(v.ndim == 4 for v in views)} with a two-dim fan-in) and "
+        f"{len(extra)} edge cases (K = 1, one channel, K minor, C minor, a "
+        "Mamba2-like two-dim fan-in, fan-ins the slices do not divide, a "
+        "base 4 bytes off alignment, bf16) within rtol 1e-5 of the plain "
+        f"version and the same bits on a second run; max abs err {err}")
     n = sum(v.numel() for v in views)
-    outs = sum(v.shape[0] * v.shape[1] for v in views)
-    nbytes = 4.0 * n + 4.0 * outs
-    b_ms, b_by = bound(nbytes, 2.0 * n)
+    b_ms, b_by = _norms_bound(torch, views)
     ms, stream = kernel_ms(lambda: [group_norms.group_norms_sq(v)
                                     for v in views], 20)
     plain_ms, _ = kernel_ms(lambda: [ref.group_norms_sq_ref(v)
                                      for v in views], 5)
     lib_ms, _ = kernel_ms(lambda: [_einsum(torch, v) for v in views], 20)
-    say(f"group_norms_sq: one dynamic round's {len(views)} views, {n} "
-        f"elements: kernel {ms:.4f} ms on the device ({stream:.4f} ms on "
-        f"the stream), plain {plain_ms:.4f} ms, library (einsum) "
-        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    say(f"group_norms_sq ({label}): one dynamic round's {len(views)} views, "
+        f"{n} elements: kernel {ms:.4f} ms on the device ({stream:.4f} ms "
+        f"on the stream), plain {plain_ms:.4f} ms, library (einsum) "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{100 * b_ms / ms:.1f}% of it reached)")
+    plan = getattr(group_norms, "plan", None)
+    for i, v in enumerate(views):
+        shape = v.shape if v.ndim == 4 else v.shape[:2] + (1,) + v.shape[2:]
+        st = v.stride() if v.ndim == 4 else v.stride()[:2] + (0,) \
+            + v.stride()[2:]
+        how = plan(shape, st, v.element_size(), v.data_ptr()).describe() \
+            if plan else "n/a"
+        k_ms = sum(x[0] for x in kernel_split(
+            lambda: group_norms.group_norms_sq(v), 10).values())
+        e_ms = sum(x[0] for x in kernel_split(
+            lambda: _einsum(torch, v), 10).values())
+        v_b, _ = _norms_bound(torch, [v])
+        say(f"group_norms_sq ({label}) view {i}: {tuple(v.shape)} strides "
+            f"{tuple(v.stride())} plan [{how}]: kernel {k_ms:.4f} ms, "
+            f"einsum {e_ms:.4f} ms, bound {v_b:.4f} ms "
+            f"({100 * v_b / k_ms:.1f}% of it reached)")
     return [{"name": "group_norms_sq", "route": "cuda", "source": NORMS_SRC,
              "replaces": "src/repro/kernels/group_norms.py:28",
              "max_abs_err": err, "ms": ms, "stream_ms": stream,
@@ -1698,24 +1771,63 @@ def profile_mamba(torch, mamba, dev):
         ms = sum(v[0] for k, v in by_name.items() if tag in k)
         cnt = sum(v[1] for k, v in by_name.items() if tag in k)
         rows[name] = (ms, cnt, len(cs), n, *bound(nbytes, ops))
-    _, norms = round_operands(
+    gathers, norms = round_operands(
         torch, eng.bundle, 2, dev,
         {k: m["idx"] for k, m in mamba["state"]["masks"].items()})
     n = sum(v.numel() for v in norms)
-    nbytes = 4.0 * n + 4.0 * sum(v.shape[0] * v.shape[1] for v in norms)
     ms, _ = kernel_ms(lambda: [group_norms.group_norms_sq(v)
                                for v in norms], 5)
+    lib = {"group_norms_sq": kernel_ms(
+        lambda: [_einsum(torch, v) for v in norms], 5)[0],
+        "gather_groups": kernel_ms(
+        lambda: [torch.index_select(x, 1, i.reshape(-1))
+                 for x, i, _ in gathers], 5)[0]}
     rows["group_norms_sq"] = (ms, len(norms), len(norms), n,
-                              *bound(nbytes, 2.0 * n))
-    del norms
+                              *_norms_bound(torch, norms))
+    del norms, gathers
     for name, (ms, cnt, ncalls, n, b_ms, b_by) in rows.items():
         say(f"mamba2 kernel {name}: {ms:.4f} ms on the device in "
             f"{cnt} launches ({ncalls} wrapper calls) per "
             + ("dynamic round (timed on its score views)"
                if name == "group_norms_sq" else "frozen round")
             + f", {n} elements; bound {b_ms:.4f} ms ({b_by}), "
-            f"{100 * b_ms / ms:.1f}% of it reached")
+            f"{100 * b_ms / ms:.1f}% of it reached; library "
+            + (f"{lib[name]:.4f} ms ("
+               + ("einsum" if name == "group_norms_sq" else "index_select")
+               + " on one dynamic round's operands)" if name in lib
+               else "none"))
     return busy
+
+
+def wire_phase(torch, dev):
+    """``--wire``: quantize_rows and group_norms_sq at phase 2's ResNet-18
+    operands and at Mamba2's (phase 6a's configuration: the 17 compact
+    payload leaves of a round at 2 nodes, one dynamic round's 9 score
+    views), from seeded synthetic data; the checks and times of phase 2,
+    per width class and per view.  Run the same script in a ``git
+    archive`` copy of another tree, in the same call, to compare its
+    kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.masks import MaskSyncConfig, budget
+    from repro_torch.core.shrinkage import plan_payload_shapes
+    from repro_torch.models import build
+    kernels = []
+    for label, cfg, lead in (
+            ("resnet18", get_config("resnet18"), 4),
+            ("mamba2", get_config("mamba2-780m").replace(
+                n_layers=MAMBA_LAYERS, param_dtype="float32"), 2)):
+        bundle = build(cfg)
+        budgets = {r.name: budget(r, MaskSyncConfig())
+                   for r in bundle.plan.rules}
+        payload = plan_payload_shapes(bundle.shapes, bundle.plan, budgets)
+        for k in check_quantize(torch, payload, lead, dev, label):
+            kernels.append(dict(k, operands=label))
+        _, norms = round_operands(torch, bundle, lead, dev)
+        for k in check_group_norms(torch, norms, dev, label):
+            kernels.append(dict(k, operands=label))
+        del norms, bundle
+        torch.cuda.empty_cache()
+    return kernels
 
 
 def _slim(r):
@@ -1758,8 +1870,8 @@ def smoke_mamba_cpu_vs_card(torch, dev):
 
 
 def main(argv) -> int:
-    if argv not in ([], ["--ssd"]):
-        return fail(f"usage: chip_smoke.py [--ssd] (got {argv})")
+    if argv not in ([], ["--ssd"], ["--wire"]):
+        return fail(f"usage: chip_smoke.py [--ssd | --wire] (got {argv})")
     try:
         import torch
     except ImportError:
@@ -1788,8 +1900,9 @@ def main(argv) -> int:
         for name, log in logs.items():
             for line in ptxas_lines(log):
                 say(f"  ptxas {name}: {line}")
-        if argv == ["--ssd"]:   # phase 6 alone: the scan kernel
-            kernels = check_ssd(torch, dev)
+        if argv:   # --ssd: phase 6 alone; --wire: the two row kernels
+            kernels = (check_ssd if argv == ["--ssd"] else wire_phase)(
+                torch, dev)
             for line in smi:
                 say(line)
             say(json.dumps({"kernels": kernels}))

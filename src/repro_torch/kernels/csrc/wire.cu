@@ -11,17 +11,32 @@
 // Bound on an H100: bytes.  Each element is read as f32 and written as one
 // int8 (5 B), plus one f32 scale per row; the arithmetic is a handful of
 // operations per element, far below the card's flop/byte balance point.
-// Design: one warp per row (the payload rows of the ResNet consensus are
-// 10 to 512 wide), eight rows per 256-thread block.  The warp reduces the
-// row's abs-max in registers with shuffles (max is exact, so its order
-// does not matter), then reads the row a second time, now from L1/L2, to
-// quantize it.  The scale uses IEEE division and round-to-nearest add,
-// and the quotient IEEE division plus rintf (round half to even), which
-// makes the result bit-equal to the plain PyTorch version
-// (``x / s`` with a tensor divisor, ``torch.round``).  Non-finite values
-// follow the reference: a NaN anywhere in a row makes its abs-max and
-// scale NaN (fmaxf would drop it), and a quotient that is NaN (from a NaN
-// scale, or inf / inf) stores 0, as XLA's float-to-int8 convert does.
+// The payload rows run from 10 wide (ResNet) to 1536 (Mamba2's embedding,
+// head and output projection, 213,450 rows a round), so the design adapts
+// to C, as the wrapper's plan (kernels/wire.py: quantize_plan) chooses:
+//
+//   * L lanes a row (1 to 256, a power of two; 256 / L rows a block), so
+//     a narrow row leaves no lane idle and a wide one spreads over several
+//     warps;
+//   * 16-byte loads and 4-byte stores of four int8 where C % 4 == 0 and
+//     the base is 16-byte aligned (then every row is), scalar ones
+//     otherwise;
+//   * the row kept in registers between the abs-max and the quantize pass
+//     (up to 6 vectors a lane: 6144 floats a row), so each element is
+//     read from HBM once, with every load of a lane in flight at once; a
+//     small view (latency-bound) takes one vector a lane, a large one
+//     (bytes-bound) up to 6, which keeps enough warps resident to overlap
+//     one row's loads with another's division; wider rows stream: one
+//     warp a row, the second read from L1/L2.
+//
+// The abs-max is reduced with shuffles within the row's lanes (max is
+// exact, so its order does not matter).  The scale uses IEEE division and
+// round-to-nearest add, and the quotient IEEE division plus rintf (round
+// half to even), which makes the result bit-equal to the plain PyTorch
+// version (``x / s`` with a tensor divisor, ``torch.round``).  Non-finite
+// values follow the reference: a NaN anywhere in a row makes its abs-max
+// and scale NaN (fmaxf would drop it), and a quotient that is NaN (from a
+// NaN scale, or inf / inf) stores 0, as XLA's float-to-int8 convert does.
 //
 // The q8 gather kernels and the three q4 kernels below are described where
 // they are defined.  Every entry point has a plain C interface (loaded with ctypes), launches on
@@ -33,6 +48,10 @@
 namespace {
 
 constexpr int kRowsPerBlock = 8;
+
+unsigned row_blocks(int64_t R) {
+  return (unsigned)((R + kRowsPerBlock - 1) / kRowsPerBlock);
+}
 
 // max that propagates NaN, as torch.amax and jnp.max do
 __device__ __forceinline__ float nan_max(float m, float a) {
@@ -46,23 +65,145 @@ __device__ __forceinline__ int8_t q8_value(float v, float sc, float levels) {
   return r != r ? (int8_t)0 : (int8_t)(int)fminf(fmaxf(r, -levels), levels);
 }
 
-__global__ void quantize_rows_kernel(const float* __restrict__ x,
-                                     int8_t* __restrict__ q,
-                                     float* __restrict__ s, int64_t R,
-                                     int64_t C, float levels) {
+template <int V>
+__device__ __forceinline__ void load_row(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = __ldg(p + k);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_q8(int8_t* p, const float (&v)[V],
+                                         float sc, float levels) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<char4*>(p) =
+        make_char4(q8_value(v[0], sc, levels), q8_value(v[1], sc, levels),
+                   q8_value(v[2], sc, levels), q8_value(v[3], sc, levels));
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) p[k] = q8_value(v[k], sc, levels);
+  }
+}
+
+// Rows held in registers: L lanes a row (a power of two up to 256: 256 / L
+// rows a block), lane l of a row holding its vectors l, l + L, ... (NV of
+// them at most, V floats each), loaded at once, reduced (shuffles within
+// a warp, then shared memory across the row's warps), quantized, stored.
+template <int NV, int V>
+__global__ void __launch_bounds__(256)
+    quantize_rows_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+                         float* __restrict__ s, int64_t R, int64_t C, int L,
+                         float levels) {
+  __shared__ float warp_max[8];
+  const int sub = threadIdx.x & (L - 1);
+  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / L;
+  const bool active = row < R;
+  const int64_t nvec = C / V;
+  // no load is conditional, so all of a lane's loads are issued before
+  // the first is used: past the row's end a lane reads its last vector
+  // again, and a row past R reads row R - 1 (neither is counted or stored)
+  const float* xr = x + (active ? row : R - 1) * C;
+  float v[NV][V];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int64_t j = sub + (int64_t)i * L;
+    load_row<V>(xr + (j < nvec ? j : nvec - 1) * V, v[i]);
+  }
+  float m = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const bool in = sub + (int64_t)i * L < nvec;
+#pragma unroll
+    for (int k = 0; k < V; ++k) m = nan_max(m, in ? fabsf(v[i][k]) : 0.f);
+  }
+  for (int off = (L < 32 ? L : 32) >> 1; off > 0; off >>= 1)
+    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (L > 32) {   // uniform: every thread reaches the barrier
+    if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+    __syncthreads();
+    const int w0 = (threadIdx.x & ~(L - 1)) >> 5;   // the row's first warp
+    m = warp_max[w0];
+    for (int w = 1; w < L / 32; ++w) m = nan_max(m, warp_max[w0 + w]);
+  }
+  if (!active) return;
+  const float sc = __fadd_rn(__fdiv_rn(m, levels), 1e-30f);
+  int8_t* qr = q + row * C;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int64_t j = sub + (int64_t)i * L;
+    if (j < nvec) store_q8<V>(qr + j * V, v[i], sc, levels);
+  }
+  if (sub == 0) s[row] = sc;
+}
+
+// Rows wider than the registers hold: one warp a row, eight rows a block;
+// the abs-max pass keeps four loads of a lane in flight, the quantize pass
+// reads the row again (from L1/L2).
+template <int V>
+__global__ void __launch_bounds__(256)
+    quantize_rows_kernel_stream(const float* __restrict__ x,
+                                int8_t* __restrict__ q,
+                                float* __restrict__ s, int64_t R, int64_t C,
+                                float levels) {
   const int lane = threadIdx.x & 31;
   const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (row >= R) return;
+  const int64_t nvec = C / V;
   const float* xr = x + row * C;
   float m = 0.f;
-  for (int64_t c = lane; c < C; c += 32) m = nan_max(m, fabsf(__ldg(xr + c)));
+  int64_t j = lane;
+  for (; j + 96 < nvec; j += 128) {
+    float v[4][V];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) load_row<V>(xr + (j + 32 * u) * V, v[u]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int k = 0; k < V; ++k) m = nan_max(m, fabsf(v[u][k]));
+  }
+  for (; j < nvec; j += 32) {
+    float v[V];
+    load_row<V>(xr + j * V, v);
+#pragma unroll
+    for (int k = 0; k < V; ++k) m = nan_max(m, fabsf(v[k]));
+  }
   for (int off = 16; off > 0; off >>= 1)
     m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
   const float sc = __fadd_rn(__fdiv_rn(m, levels), 1e-30f);
   int8_t* qr = q + row * C;
-  for (int64_t c = lane; c < C; c += 32)
-    qr[c] = q8_value(__ldg(xr + c), sc, levels);
+  for (j = lane; j < nvec; j += 32) {
+    float v[V];
+    load_row<V>(xr + j * V, v);
+    store_q8<V>(qr + j * V, v, sc, levels);
+  }
   if (lane == 0) s[row] = sc;
+}
+
+template <int V>
+int launch_quantize_rows(const float* x, int8_t* q, float* s, int64_t R,
+                         int64_t C, float levels, int lanes, int nv,
+                         cudaStream_t st) {
+  const unsigned blocks = (unsigned)((R * lanes + 255) / 256);
+  switch (nv) {
+#define QROWS(N)                                                          \
+  case N:                                                                 \
+    quantize_rows_kernel<N, V><<<blocks, 256, 0, st>>>(x, q, s, R, C,     \
+                                                       lanes, levels);    \
+    break;
+    QROWS(1) QROWS(2) QROWS(3) QROWS(4) QROWS(6)
+#undef QROWS
+    case 0:
+      quantize_rows_kernel_stream<V><<<row_blocks(R), 32 * kRowsPerBlock, 0,
+                                       st>>>(x, q, s, R, C, levels);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 // Replaces gather_quantize of src/repro/kernels/wire.py: the q8 encode of
@@ -230,21 +371,23 @@ __global__ void unpack_gather_dequantize_q4_kernel(
   }
 }
 
-unsigned row_blocks(int64_t R) {
-  return (unsigned)((R + kRowsPerBlock - 1) / kRowsPerBlock);
-}
-
 }  // namespace
 
 extern "C" {
 
+// lanes (1..256, a power of two), nv (vectors a lane holds in registers:
+// 1, 2, 3, 4 or 6; 0 streams, with lanes 32) and vec (4: 16-byte loads,
+// which need C % 4 == 0 and a 16-byte aligned x; else 1) as
+// kernels/wire.py: quantize_plan chooses them.
 int quantize_rows_f32(const float* x, int8_t* q, float* s, int64_t R,
-                      int64_t C, int levels, void* stream) {
+                      int64_t C, int levels, int lanes, int nv, int vec,
+                      void* stream) {
   if (R <= 0 || C <= 0) return (int)cudaSuccess;
-  quantize_rows_kernel<<<row_blocks(R), 32 * kRowsPerBlock, 0,
-                         (cudaStream_t)stream>>>(x, q, s, R, C,
-                                                 (float)levels);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return vec == 4 ? launch_quantize_rows<4>(x, q, s, R, C, (float)levels,
+                                            lanes, nv, st)
+                  : launch_quantize_rows<1>(x, q, s, R, C, (float)levels,
+                                            lanes, nv, st);
 }
 
 int gather_quantize_f32(const float* x, const int32_t* idx, int8_t* q,

@@ -14,7 +14,9 @@
     unpacked space + dequantize (``Q4Codec.decode``/``decode_expand``).
 
 Scale granularity is one f32 scale per ROW of the (R, C) view — a
-function of the leaf shape, so ``wire_bytes`` stays analytic.  A tensor
+function of the leaf shape, so ``wire_bytes`` stays analytic.
+:func:`quantize_plan` chooses ``quantize_rows``'s launch from the row
+width and the base address (a plain function, so the CPU tests check it).  A tensor
 on the CPU takes the plain version (``kernels/ref.py``); a CUDA tensor
 launches the kernel or raises.  ``launches`` counts launches.  The q8
 gather kernels take int32 indices, as the TPU kernels do; the q4 ones
@@ -39,7 +41,8 @@ def _lib():
     lib = _build.library("wire")
     if lib.quantize_rows_f32.argtypes is None:
         for name, args in (
-                ("quantize_rows_f32", [_P, _P, _P, _I64, _I64, _INT, _P]),
+                ("quantize_rows_f32",
+                 [_P, _P, _P, _I64, _I64] + [_INT] * 4 + [_P]),
                 ("gather_quantize_f32", [_P] * 4 + [_I64] * 3 + [_INT, _P]),
                 ("gather_dequantize_f32", [_P] * 4 + [_I64] * 3 + [_P]),
                 ("quantize_pack_q4_f32", [_P, _P, _P, _I64, _I64, _P]),
@@ -78,6 +81,32 @@ def _levels(what: str, levels: int) -> None:
         raise ValueError(f"{what}: levels {levels} outside (0, 127]")
 
 
+QUANT_NV = (1, 2, 3, 4, 6)   # vectors a lane holds: the kernel's set
+# a view of fewer vectors than this (one per thread the H100's 132 SMs
+# hold at once) is latency-bound: it takes one vector a lane; a larger
+# one keeps up to QUANT_NV[-1] a lane in flight
+QUANT_SMALL = 132 * 2048
+
+
+def quantize_plan(R: int, C: int, ptr: int) -> tuple[int, int, int]:
+    """(lanes, nv, vec) of ``quantize_rows`` on ``R`` rows of ``C`` floats
+    from address ``ptr``: 16-byte vectors (vec 4) where C % 4 == 0 and the
+    base is 16-byte aligned, else single floats; the fewest lanes a row (a
+    power of two up to 256) that leave each at most one vector (a view
+    under QUANT_SMALL vectors) or QUANT_NV[-1] (a larger one), and the
+    least count of QUANT_NV that covers a lane's share (nv); rows that
+    need more than QUANT_NV[-1] vectors a lane at 256 lanes stream (lanes
+    32, nv 0)."""
+    vec = 4 if C % 4 == 0 and ptr % 16 == 0 else 1
+    nvec = C // vec
+    per_max = 1 if R * nvec < QUANT_SMALL else QUANT_NV[-1]
+    lanes = min(256, 1 << (max(-(-nvec // per_max), 1) - 1).bit_length())
+    per = -(-nvec // lanes)
+    if per > QUANT_NV[-1]:
+        return 32, 0, vec
+    return lanes, min(n for n in QUANT_NV if n >= per), vec
+
+
 def quantize_rows(x, *, levels: int = 127):
     """x: (R, C) float32 -> (q int8 (R, C), scale f32 (R, 1))."""
     if _on_cpu("quantize_rows", x):
@@ -87,8 +116,9 @@ def quantize_rows(x, *, levels: int = 127):
     R, C = x.shape
     q = torch.empty((R, C), dtype=torch.int8, device=x.device)
     s = torch.empty((R, 1), dtype=torch.float32, device=x.device)
+    lanes, nv, vec = quantize_plan(R, C, x.data_ptr())
     err = _lib().quantize_rows_f32(x.data_ptr(), q.data_ptr(), s.data_ptr(),
-                                   R, C, levels, _stream(x))
+                                   R, C, levels, lanes, nv, vec, _stream(x))
     _build.check(err, "quantize_rows")
     launches["quantize_rows"] += 1
     return q, s

@@ -238,3 +238,137 @@ def test_group_scores_resnet18_full_match_reference():
             to_np(tsp.group_scores(tp, rule, offset=1)),
             np.asarray(jsp.group_scores(jp, rule, offset=1)), rtol=1e-5,
             err_msg=rule.name)
+
+
+# ---------------------------------------------------------------------------
+# the launch plans of the group-norm and quantize kernels (plain functions
+# of shapes, strides and addresses; the kernels themselves run on the card)
+# ---------------------------------------------------------------------------
+
+
+def _score_views(arch, lead, monkeypatch):
+    """(shape, strides) of every view one dynamic round's mask scores hand
+    the group-norm kernel wrapper (``core.sparsity.group_scores`` at
+    ``lead`` nodes), read off meta tensors: ResNet-18 at full width, or
+    phase 6d's Mamba2-780M (4 layers)."""
+    from repro_torch.configs import get_config as t_get_config
+    from repro_torch.core import sparsity as tsp
+    from repro_torch.kernels import group_norms as tgn
+    from repro_torch.models import build as t_build
+    cfg = t_get_config(arch)
+    if arch == "mamba2-780m":
+        cfg = cfg.replace(n_layers=4)
+    b = t_build(cfg)
+    payload = {k: torch.empty((lead,) + tuple(s), device="meta")
+               for k, s in b.shapes.items()}
+    seen = []
+
+    def record(v):
+        seen.append((tuple(v.shape), tuple(v.stride())))
+        return torch.zeros(tuple(v.shape[:2]), device="meta")
+    monkeypatch.setattr(tgn, "group_norms_sq", record)
+    for rule in b.plan.rules:
+        tsp.group_scores(payload, rule, offset=1)
+    return seen
+
+
+def _four_d(shape, strides):
+    if len(shape) == 3:
+        return shape[:2] + (1,) + shape[2:], strides[:2] + (0,) + strides[2:]
+    return shape, strides
+
+
+def _check_norms_plan(shape, strides, elem, ptr):
+    """A plan's slices read every fan-in position exactly once, slice after
+    slice in the walked dim; its blocks cover every output; it takes
+    16-byte vectors only where they are aligned."""
+    from repro_torch.kernels import group_norms as tgn
+    shape, strides = _four_d(tuple(shape), tuple(strides))
+    p = tgn.plan(shape, strides, elem, ptr)
+    G, C, K1, K2 = shape
+    want = sorted(a * strides[2] + b * strides[3]
+                  for a in range(K1) for b in range(K2))
+    reads = tgn.slice_reads(p)
+    assert len(reads) == p.slices
+    assert sorted(o for sl in reads for _, o in sl) == want
+    assert p.slices == 1 or p.blocks < tgn.TARGET_BLOCKS
+    walked = [[w for w, _ in sl] for sl in reads if sl]
+    for a, b in zip(walked, walked[1:]):
+        assert max(a) < min(b)
+    if p.layout == 1:
+        assert strides[1] == 1 and p.group == p.tx * p.vec
+        assert p.blocks * p.group >= G * C and p.tx * p.ty <= tgn.THREADS
+    else:
+        assert p.blocks * (tgn.THREADS // p.group) >= G * C
+        assert p.tx * p.ty <= p.group and p.group % 32 == 0
+    if p.vec > 1:
+        assert p.vec * elem == 16 and ptr % 16 == 0
+        other = ((G, strides[0]), (p.rows, p.rs)) + (
+            ((p.cols, p.cs),) if p.layout == 1 else ((C, strides[1]),))
+        assert all(s % p.vec == 0 for n, s in other if n > 1)
+        if p.layout == 1:      # vectors of channels
+            assert C % p.vec == 0
+        else:                  # vectors along the contiguous fan-in dim
+            assert p.cs == 1 and p.cols * p.vec in (K1, K2)
+    return p
+
+
+@pytest.mark.parametrize("arch,lead", [("resnet18", 4),
+                                       ("mamba2-780m", 2)])
+@pytest.mark.parametrize("elem,ptr", [(4, 0), (4, 4), (2, 0), (2, 2)])
+def test_group_norms_plan_covers_score_views(arch, lead, elem, ptr,
+                                             monkeypatch):
+    """Every score view of a dynamic round (ResNet-18's 40, phase 6d's
+    Mamba2 9), aligned and 4 (f32) or 2 (bf16) bytes off alignment."""
+    views = _score_views(arch, lead, monkeypatch)
+    assert len(views) == {"resnet18": 40, "mamba2-780m": 9}[arch]
+    plans = [_check_norms_plan(s, st, elem, ptr) for s, st in views]
+    if ptr % 16:
+        assert all(p.vec == 1 for p in plans)
+    else:
+        assert any(p.vec > 1 for p in plans)
+
+
+@pytest.mark.parametrize("shape,strides", [
+    ((2, 5, 98301), (491505, 98301, 1)),          # prime K, column walk
+    ((2, 3, 1531, 20), (91860, 20, 60, 1)),       # prime rows, row walk
+    ((2, 30, 3001), (90030, 1, 30)),              # C minor, C = 30
+    ((2, 64, 7, 3), (2240, 1, 320, 64)),          # C minor, two fan-in dims
+    ((4, 64, 9, 96), (55296, 96, 6144, 1)),       # K minor, two dims
+    ((2, 6, 1536, 64), (589824, 64, 384, 1)),     # Mamba2-like
+    ((4, 1, 5000), (5000, 5000, 1)),              # one channel
+    ((4, 96, 1), (96, 1, 1)),                     # K = 1
+    ((3, 7, 0), (0, 0, 1)),                       # empty fan-in
+    ((2, 9, 11, 13), (1287, 1, 117, 9)),          # C minor, odd everything
+    ((2, 4, 6, 10), (240, 60, 1, 6)),             # K1 contiguous
+    ((5, 3, 1000), (6000, 2000, 2)),              # no contiguous axis
+])
+@pytest.mark.parametrize("elem", [4, 2])
+def test_group_norms_plan_covers_odd_fan_ins(shape, strides, elem):
+    _check_norms_plan(shape, strides, elem, 0)
+    _check_norms_plan(shape, strides, elem, 16 - elem)
+
+
+@pytest.mark.parametrize("C", [1, 3, 10, 24, 31, 32, 33, 64, 127, 128, 256,
+                               512, 1536, 1537, 2048, 4096, 6144, 6145])
+@pytest.mark.parametrize("R", [1, 97, 213450])
+@pytest.mark.parametrize("ptr", [0, 4, 16])
+def test_quantize_plan_covers_rows(C, R, ptr):
+    """quantize_rows's plan: a power of two of lanes up to 256; 16-byte
+    vectors only where C % 4 == 0 and the base is aligned; the registers
+    held cover the row (one vector a lane for a small view, where that
+    fits), or rows past 6 vectors a lane at 256 lanes stream."""
+    lanes, nv, vec = wire.quantize_plan(R, C, ptr)
+    assert lanes in (1, 2, 4, 8, 16, 32, 64, 128, 256)
+    assert vec == (4 if C % 4 == 0 and ptr % 16 == 0 else 1)
+    nvec = C // vec
+    if nv:
+        assert nv in wire.QUANT_NV and lanes * nv * vec >= C
+        per_max = 1 if R * nvec < wire.QUANT_SMALL else wire.QUANT_NV[-1]
+        if nvec <= 256 * per_max:     # the fewest lanes that hold the row
+            assert lanes * per_max >= nvec
+            assert lanes == 1 or lanes // 2 * per_max < nvec
+        else:
+            assert lanes == 256
+    else:
+        assert lanes == 32 and nvec > 256 * wire.QUANT_NV[-1]

@@ -97,6 +97,57 @@ def test_quantize_kernel_nonfinite_row_equals_plain(value, C, dev):
     assert not torch.isfinite(s[1, 0])
 
 
+# quantize_rows's paths (wire.quantize_plan): 1 to 256 lanes a row, rows
+# held in registers (one vector a lane for a small view, up to 6 for a
+# large one) or streamed, 16-byte or scalar loads; Mamba2's payload rows
+# are 1536 and 64 wide
+PATH_WIDTHS = [1, 3, 10, 24, 31, 32, 33, 64, 127, 128, 1536, 1537, 4096]
+
+
+@pytest.mark.parametrize("C", PATH_WIDTHS)
+@pytest.mark.parametrize("R", [1, 97, 20011])
+def test_quantize_kernel_paths_equal_plain(C, R, dev):
+    x = _randn((R, C), C + R, dev, scale=0.05)
+    ops.reset_launch_counts()
+    q, s = wire.quantize_rows(x)
+    assert ops.launch_counts()["quantize_rows"] == 1
+    qp, sp = ref.quantize_rows_ref(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+
+
+@pytest.mark.parametrize("C", PATH_WIDTHS)
+def test_quantize_kernel_unaligned_base_equals_plain(C, dev):
+    """A view that starts at element 1 (4 bytes off 16-byte alignment)
+    takes the scalar loads, bit-equal all the same."""
+    R = 13
+    x = _randn((R * C + 1,), C, dev)[1:].view(R, C)
+    assert wire.quantize_plan(R, C, x.data_ptr())[2] == 1
+    q, s = wire.quantize_rows(x)
+    qp, sp = ref.quantize_rows_ref(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+
+
+@pytest.mark.parametrize("C", PATH_WIDTHS)
+def test_quantize_kernel_nonfinite_rows_on_each_path(C, dev):
+    """NaN, inf and -inf rows on each path keep the plain version's scale
+    (NaN or inf) and its zeros where the quotient is NaN; the finite rows
+    around them stay bit-equal."""
+    x = _randn((6, C), 2 * C, dev)
+    x[1, C // 2] = float("nan")
+    x[2, 0] = float("inf")
+    x[3, C - 1] = -float("inf")
+    x[4, 0] = float("nan")
+    x[4, C - 1] = float("inf")
+    q, s = wire.quantize_rows(x)
+    qp, sp = ref.quantize_rows_ref(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qp)
+    torch.testing.assert_close(s, sp, rtol=0, atol=0, equal_nan=True)
+    assert not torch.isfinite(s[1:5]).any()
+
+
 # (R, C) views: odd C, one-element rows (1-D and 0-D leaves), R that no
 # block of eight rows divides, and the widths of the compact payload
 Q4_SHAPES = [(1, 1), (1, 7), (3, 1), (5, 33), (13, 10), (16, 128), (7, 257),
@@ -344,6 +395,47 @@ def test_group_norms_kernel_reads_moved_views(ax, dev):
     torch.testing.assert_close(group_norms.group_norms_sq(t),
                                ref.group_norms_sq_ref(t), rtol=1e-5, atol=0)
     torch.cuda.synchronize()
+
+
+# score-like views (base shape, view of the base): a Mamba2 head view at
+# moved strides, fan-ins the slices do not divide, K = 1, one channel, C
+# minor with one and two fan-in dims, K minor, bases 4 bytes off 16-byte
+# alignment
+NORM_VIEWS = {
+    "mamba_like": ((2, 1536, 6, 64), lambda b: b.permute(0, 2, 1, 3)),
+    "k_long_prime": ((2, 5, 98301), lambda b: b),
+    "rows_prime": ((2, 1531, 3, 20), lambda b: b.permute(0, 2, 1, 3)),
+    "k_one": ((4, 96, 1), lambda b: b),
+    "one_channel": ((4, 1, 5000), lambda b: b),
+    "c_minor": ((4, 4608, 512), lambda b: b.transpose(1, 2)),
+    "c_minor_ragged": ((2, 3001, 30), lambda b: b.transpose(1, 2)),
+    "c_minor_two_dim": ((2, 7, 5, 64),
+                        lambda b: b[:, :, :3].permute(0, 3, 1, 2)),
+    "k_minor_two_dim": ((4, 3, 3, 64, 96),
+                        lambda b: torch.movedim(b, 3, 1).reshape(
+                            4, 64, 9, 96)),
+    "unaligned": ((2 * 5 * 4097 + 1,), lambda b: b[1:].view(2, 5, 4097)),
+    "unaligned_c_minor": ((2 * 640 * 64 + 1,),
+                          lambda b: b[1:].view(2, 640, 64).transpose(1, 2)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(NORM_VIEWS))
+def test_group_norms_kernel_views_equal_plain(name, dtype, dev):
+    """Every layout and path of group_norms.plan within rtol 1e-5 of the
+    plain version, and the same bits on a second run (the slices' partials
+    are added in slice order, with no float atomics)."""
+    shape, view = NORM_VIEWS[name]
+    v = view(_randn(shape, len(name), dev).to(dtype))
+    ops.reset_launch_counts()
+    out = group_norms.group_norms_sq(v)
+    assert ops.launch_counts()["group_norms_sq"] == 1
+    plain = ref.group_norms_sq_ref(v)
+    again = group_norms.group_norms_sq(v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, plain, rtol=1e-5, atol=0)
+    assert torch.equal(out, again)
 
 
 def test_smoke_rounds_are_bit_equal(dev):
