@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py           # every phase
     python3 chip_smoke.py --ssd     # phases 1 and 6 alone (no result line)
-    python3 chip_smoke.py --wire    # phase 1 and the quantize_rows and
+    python3 chip_smoke.py --wire    # phase 1 and the quantize_rows,
+                                    # quantize_pack_q4, gather_groups and
                                     # group_norms_sq checks at the ResNet
                                     # and Mamba2 operands (no result line)
+    python3 chip_smoke.py --rounds  # phase 1, then phases 3b and 3's
+                                    # runs alone, timed (no result line)
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -17,22 +20,29 @@ Phases (any failure exits non-zero and prints no result line):
    error <= 1e-6; quantize_rows and the three q4 kernels: every compact
    inter-node payload leaf, plus odd-C, 1-D and NaN/inf rows (for
    quantize_rows: on each of its paths, and a base 4 bytes off
-   alignment), bit-equal;
-   gather_groups: one dynamic round's compactions and expansions, prime
-   R, B = 1, odd C and int8/uint8/bf16, bit-equal; gather_quantize and
+   alignment; quantize_pack_q4: the 62 leaves in one call, as the q4
+   ring encodes them, and each path of its plan), bit-equal;
+   gather_groups: one dynamic round's compactions and expansions (one
+   launch a rule and direction, the expansions reading index C/g as
+   zeros), prime R, B = 1, odd C and int8/uint8/bf16, groups of 8 with
+   Q > 1 and S > 1, a base 4 bytes off, a table over one launch's
+   capacity, bit-equal; gather_quantize and
    gather_dequantize: the codec API's compacted leaves, odd-C, one-row
    and NaN/inf rows, bit-equal; group_norms_sq: one dynamic round's score
    views, K = 1, K minor, C minor, a Mamba2-like view, fan-ins its slices
    do not divide, an unaligned base and bf16, rtol 1e-5 and the same bits
    twice), and time kernel, plain version, library call and bound (for
-   quantize_rows also per row width, for group_norms_sq per view beside
-   its launch plan);
+   quantize_rows and quantize_pack_q4 also per row width beside the
+   plan, for gather_groups per run width and per launch, for
+   group_norms_sq per view beside its launch plan; the gather's library
+   call is take_along_dim on its (R/(S P), S, P, C/g, g Q) view);
 3. train full-width ResNet-18 with H-SADMM through the port's ``train``:
    16 workers stacked on the card, levels (4, 4), compact+q8 inter-node
    wire, 32 images per worker, 6 rounds of 8 local steps, masks frozen at
    round 3; the kernel launch counts are zeroed just before and read
-   after every round: 62 x 8 prox, 62 quantize and 160 gather launches
-   per round, and 40 group-norm launches per dynamic round;
+   after every round: 62 x 8 prox, 62 quantize and 16 gather launches
+   (one a rule and direction) per round, and 40 group-norm launches per
+   dynamic round;
 3a. determinism: phase 3 once more with cuDNN's deterministic switch off
    (timed only: what the switch costs), then once more as the program
    runs it, bit-equal to phase 3 in losses, mask indices after every
@@ -53,8 +63,8 @@ Phases (any failure exits non-zero and prints no result line):
 3b. the same model trained with physical reconfiguration over the
    compact+q4 inter-node wire: 8 rounds, masks frozen at round 3, the
    whole state migrated onto the budget-B ResNet (stem 32, stages
-   32/64/128/256) before round 4; 62 x 8 prox and 62 q4 quantize launches
-   and no q8 launch per round; per-round walls, bytes and peak memory
+   32/64/128/256) before round 4; 62 x 8 prox and one q4 quantize launch
+   (all 62 leaves) and no q8 launch per round; per-round walls, bytes and peak memory
    before and after the reconfiguration; then trained again, bit-equal;
 5b. one more reconfigured round under the profiler;
 4. one resnet-smoke round on the card and on the CPU from the same state
@@ -71,21 +81,23 @@ Phases (any failure exits non-zero and prints no result line):
    at levels (2, 2), compact+q8 inter-node wire, one 4096-token sequence
    per worker, eta 1e-3, 5 rounds of 8 local steps, masks frozen after
    round 2; finite losses, the reference's bytes, per round 32 scan, 136
-   prox, 17 quantize and 18 gather launches and 9 group-norm launches in
+   prox, 17 quantize and 2 gather launches and 9 group-norm launches in
    a dynamic round; peak memory under 60 GB;
 6d. one more frozen round of 6a's path under the profiler, with the
    device time, launches and bytes bound of the hand kernels at its
    operands (group_norms_sq on one dynamic round's score views), and the
    library calls beside group_norms_sq (einsum) and gather_groups
-   (index_select) on one dynamic round's operands;
+   (take_along_dim, expansions from a padded copy) on one dynamic
+   round's operands;
 6b. phase 6a again, bit-equal; its first two rounds under
    ``torch.use_deterministic_algorithms``, kernel route against plain
    route, bit-equal as well;
 6c. one mamba2 smoke round on the card and on the CPU from one state.
 
-``--wire`` runs phase 1, then phase 2's quantize_rows and group_norms_sq
-checks and times at the ResNet-18 operands and at Mamba2's (phase 6a's
-configuration, seeded synthetic data of the shapes phase 6d records).
+``--wire`` runs phase 1, then phase 2's quantize_rows, quantize_pack_q4
+(ResNet only), gather_groups and group_norms_sq checks and times at the
+ResNet-18 operands and at Mamba2's (phase 6a's configuration, seeded
+synthetic data of the shapes phase 6d records).
 
 It prints one fact per line, then the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line
@@ -140,7 +152,11 @@ def cuda_ms(fn, reps: int) -> float:
 
 def device_events(fn, reps: int):
     """Device-side (kernel) events of ``reps`` runs of ``fn()`` after one
-    warm-up, from ``torch.profiler``; [] when it records none."""
+    warm-up, from ``torch.profiler``; [] when it records none.  The
+    profiler keeps only device events that fall inside its host-clock
+    window, and the device's clock can sit a little off the host's: a
+    window of a few microseconds of kernels then keeps none.  So the
+    window is padded on both sides with an idle device."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -148,9 +164,11 @@ def device_events(fn, reps: int):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.005)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(0.005)
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
@@ -169,14 +187,20 @@ def kernel_split(fn, reps: int) -> dict:
     parameter lists and namespaces dropped): each kernel's mean duration
     times its launches per run.  The profiler can drop an event of a long
     window, so the launches per run are its recorded ones over ``reps``,
-    rounded.  Raises when three windows record no device events: the
-    stream time is no device time."""
-    for _ in range(3):   # a short window now and then records none
-        evs = device_events(fn, reps)
+    rounded.  A window that records no device events is tried again,
+    longer; when four record none, the result is the CUDA-event time of
+    the whole sequence under one name that says so (host gaps included,
+    so it can only overstate the device time)."""
+    for n in range(4):
+        evs = device_events(fn, reps << n)
         if evs:
+            reps <<= n
             break
     else:
-        raise RuntimeError("the profiler recorded no device events")
+        ms = cuda_ms(fn, reps)
+        say(f"profiler: no device events in four windows; timed with CUDA "
+            f"events instead ({ms:.4f} ms a run, host gaps included)")
+        return {"all kernels (CUDA events, no profiler events)": (ms, 1)}
     out = {}
     for e in evs:
         name = e.name.replace("(anonymous namespace)::", "") \
@@ -342,15 +366,14 @@ def check_quantize(torch, payload_shapes, lead, dev, label="resnet18"):
         f"{ms:.4f} ms on the device ({stream:.4f} ms on the stream), plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
         f"{100 * b_ms / ms:.1f}% of it reached)")
-    plan = getattr(wire, "quantize_plan", None)
     for C in sorted({x.shape[1] for x in xs}):
         cls = [x for x in xs if x.shape[1] == C]
         R = sum(x.shape[0] for x in cls)
         c_ms = sum(v[0] for v in kernel_split(
             lambda: [wire.quantize_rows(x) for x in cls], 20).values())
         c_b, _ = bound(5.0 * R * C + 4.0 * R, 7.0 * R * C)
-        how = sorted({plan(x.shape[0], C, x.data_ptr()) for x in cls}) \
-            if plan else "n/a"
+        how = sorted({wire.quantize_plan(x.shape[0], C, x.data_ptr())
+                      for x in cls})
         say(f"quantize_rows ({label}) C = {C}: {len(cls)} leaves, {R} rows, "
             f"plan (lanes, nv, vec) {how}: kernel "
             f"{c_ms:.4f} ms, bound {c_b:.4f} ms ({100 * c_b / c_ms:.1f}% "
@@ -407,37 +430,98 @@ def _compact_operands(torch, full_shapes, payload_shapes, lead, gen, dev):
     return enc
 
 
-def check_q4(torch, full_shapes, payload_shapes, lead, dev):
-    """The three q4 kernels vs their plain versions, bit for bit, at the
-    main paths' shapes, plus odd-C, 1-D and NaN/inf rows; timed.
+def _q4_bytes(xs) -> float:
+    """Bytes of the q4 encode of ``xs``: each float read once, each packed
+    byte and f32 scale written once."""
+    return sum(4.0 * x.numel() + x.shape[0] * ((x.shape[1] + 1) // 2)
+               + 4.0 * x.shape[0] for x in xs)
 
-    quantize_pack_q4: every compact payload leaf at ``lead`` members, as
-    the ring views it.  gather_quantize_q4 / unpack_gather_dequantize_q4:
-    the codec API's encode_compact / decode_expand of every full-width
-    leaf whose minor axis is compacted, at a random kept set of the
-    payload's width."""
+
+def check_q4_pack(torch, payload_shapes, lead, dev, label="resnet18"):
+    """quantize_pack_q4 vs the plain version, bit for bit, on every
+    compact payload leaf as the q4 ring views it, (lead * rows, C), in one
+    call as the ring makes it (``wire.quantize_pack_q4_table``), and on
+    edge cases of each path of the plan (rows in registers and streamed,
+    vectors of four floats and pairs, odd C, C = 1, NaN and inf rows, a
+    base 4 bytes off alignment), alone and all in one call; timed over
+    all leaves, per
+    width class beside the plan, with the launches a call takes."""
     from repro_torch.kernels import ops, ref, wire
-    gen = torch.Generator(device=dev).manual_seed(3)
+    gen = torch.Generator(device=dev).manual_seed(8)
     xs = []
     for shape in payload_shapes.values():
         R, C = _q4_views(shape, lead)
         xs.append(torch.randn((R, C), generator=gen, device=dev) * 0.05)
+    edges = []
+    for R, C in ((1, 1), (97, 3), (37, 10), (20011, 33), (37, 64),
+                 (37, 1536), (37, 1537), (5, 4096), (5, 6145), (3, 12288)):
+        x = torch.randn((R, C), generator=gen, device=dev)
+        x[R // 2, C // 2] = float("nan")
+        x[-1, -1], x[0, 0] = float("inf"), -float("inf")
+        edges.append(x)
+    buf = torch.randn((37 * 1536 + 1,), generator=gen, device=dev)
+    edges += [buf[1:].view(37, 1536), buf[1:1 + 37 * 33].view(37, 33)]
+    err = 0.0
+    for group in [xs, edges] + [[x] for x in edges]:
+        for x, got in zip(group, wire.quantize_pack_q4_table(group)):
+            err = max(err, _equal_q4(torch, got, ref.quantize_pack_q4_ref(x),
+                                     f"quantize_pack_q4 {tuple(x.shape)}"))
+    torch.cuda.synchronize()
+    say(f"quantize_pack_q4 check ({label}): {len(xs)} payload leaves in "
+        f"one call and {len(edges)} edge cases (C = 1 to 12288 on each path "
+        "of the plan, NaN and inf rows, bases 4 bytes off alignment), "
+        "alone and in one call, bit-equal to the plain version (max abs "
+        f"err {err})")
+    ops.reset_launch_counts()
+    wire.quantize_pack_q4_table(xs)
+    calls = ops.launch_counts()["quantize_pack_q4"]
+    n = sum(x.numel() for x in xs)
+    b_ms, b_by = bound(_q4_bytes(xs), 7.0 * n)
+    ms, stream = kernel_ms(lambda: wire.quantize_pack_q4_table(xs), 20)
+    plain_ms, _ = kernel_ms(lambda: [ref.quantize_pack_q4_ref(x)
+                                     for x in xs], 5)
+    say(f"quantize_pack_q4 ({label}): {len(xs)} leaves in {calls} "
+        f"launch(es), {n} elements: kernel {ms:.4f} ms on the device "
+        f"({stream:.4f} ms on the stream), plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f}% of it reached)")
+    for C in sorted({x.shape[1] for x in xs}):
+        cls = [x for x in xs if x.shape[1] == C]
+        c_ms, c_st = kernel_ms(
+            lambda: wire.quantize_pack_q4_table(cls), 20)
+        c_b, _ = bound(_q4_bytes(cls), 7.0 * sum(x.numel() for x in cls))
+        how = sorted({wire.q4_plan(x.shape[0], C, x.data_ptr(), 0)
+                      for x in cls})
+        say(f"quantize_pack_q4 ({label}) C = {C}: {len(cls)} leaves, "
+            f"{sum(x.shape[0] for x in cls)} rows, plan (lanes, nv, vec) "
+            f"{how}: kernel {c_ms:.4f} ms on the device ({c_st:.4f} ms on "
+            f"the stream), bound {c_b:.4f} ms ({100 * c_b / c_ms:.1f}% of "
+            "it reached)")
+    return [{"name": "quantize_pack_q4", "route": "cuda", "source": WIRE_SRC,
+             "replaces": "src/repro/kernels/wire.py:153", "max_abs_err": err,
+             "ms": ms, "stream_ms": stream, "plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}]
+
+
+def check_q4(torch, full_shapes, payload_shapes, lead, dev):
+    """The q4 gather and unpack kernels vs their plain versions, bit for
+    bit, at the main paths' shapes, plus odd-C, 1-D and NaN/inf rows;
+    timed (quantize_pack_q4: ``check_q4_pack``).
+
+    gather_quantize_q4 / unpack_gather_dequantize_q4: the codec API's
+    encode_compact / decode_expand of every full-width leaf whose minor
+    axis is compacted, at a random kept set of the payload's width."""
+    from repro_torch.kernels import ops, ref, wire
+    gen = torch.Generator(device=dev).manual_seed(3)
     enc = _compact_operands(torch, full_shapes, payload_shapes, lead, gen,
                             dev)
     # each kernel's max abs difference from its plain version over every
     # comparison below (bytes as integers, scales, decoded values; the
     # entries that are not finite in both are held equal, not measured)
-    err = {"quantize_pack_q4": 0.0, "gather_quantize_q4": 0.0,
-           "unpack_gather_dequantize_q4": 0.0}
+    err = {"gather_quantize_q4": 0.0, "unpack_gather_dequantize_q4": 0.0}
 
     def note(name, e):
         err[name] = max(err[name], e)
 
-    for x in xs:
-        note("quantize_pack_q4",
-             _equal_q4(torch, wire.quantize_pack_q4(x),
-                       ref.quantize_pack_q4_ref(x),
-                       f"quantize_pack_q4 {tuple(x.shape)}"))
     dec = []
     for x, idx in enc:
         p, sc = wire.gather_quantize_q4(x, idx)
@@ -469,10 +553,7 @@ def check_q4(torch, full_shapes, payload_shapes, lead, dev):
         -float("inf")
     for x in extra + [bad]:
         C = x.shape[1]
-        p, sc = wire.quantize_pack_q4(x)
-        note("quantize_pack_q4",
-             _equal_q4(torch, (p, sc), ref.quantize_pack_q4_ref(x),
-                       f"quantize_pack_q4 {tuple(x.shape)}"))
+        p, sc = ref.quantize_pack_q4_ref(x)
         idx = torch.arange(0, C, 2, device=dev)
         note("gather_quantize_q4",
              _equal_q4(torch, wire.gather_quantize_q4(x, idx),
@@ -485,10 +566,9 @@ def check_q4(torch, full_shapes, payload_shapes, lead, dev):
                                    equal_nan=True)
         note("unpack_gather_dequantize_q4", _abs_err(torch, out, plain))
     torch.cuda.synchronize()
-    say(f"q4 check: quantize_pack_q4 on {len(xs)} payload leaves, "
-        f"gather_quantize_q4 and unpack_gather_dequantize_q4 on {len(enc)} "
-        "compacted leaves, bit-equal to the plain versions; odd-C, 1-D, "
-        f"ragged-R and NaN/inf rows equal; max abs err {err}")
+    say(f"q4 check: gather_quantize_q4 and unpack_gather_dequantize_q4 on "
+        f"{len(enc)} compacted leaves, bit-equal to the plain versions; "
+        f"odd-C, 1-D, ragged-R and NaN/inf rows equal; max abs err {err}")
 
     def time_one(name, kern, plain, nbytes, nops, what):
         b_ms, b_by = bound(nbytes, nops)
@@ -499,15 +579,12 @@ def check_q4(torch, full_shapes, payload_shapes, lead, dev):
             f"bound {b_ms:.4f} ms ({b_by})")
         return {"name": name, "route": "cuda", "source": WIRE_SRC,
                 "replaces": "src/repro/kernels/wire.py:" + {
-                    "quantize_pack_q4": "153", "gather_quantize_q4": "179",
+                    "gather_quantize_q4": "179",
                     "unpack_gather_dequantize_q4": "205"}[name],
                 "max_abs_err": err[name], "ms": ms, "stream_ms": stream,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None}
 
-    n7 = sum(x.numel() for x in xs)
-    r7 = sum(x.shape[0] for x in xs)
-    p7 = sum(x.shape[0] * ((x.shape[1] + 1) // 2) for x in xs)
     nb = sum(x.shape[0] * idx.shape[0] for x, idx in enc)
     r8 = sum(x.shape[0] for x, _ in enc)
     p8 = sum(x.shape[0] * ((idx.shape[0] + 1) // 2) for x, idx in enc)
@@ -515,11 +592,6 @@ def check_q4(torch, full_shapes, payload_shapes, lead, dev):
     n9 = sum(pp.shape[0] * inv.shape[0] for pp, _, inv in dec)
     i9 = sum(inv.shape[0] for _, _, inv in dec)
     return [
-        time_one("quantize_pack_q4",
-                 lambda: [wire.quantize_pack_q4(x) for x in xs],
-                 lambda: [ref.quantize_pack_q4_ref(x) for x in xs],
-                 4.0 * n7 + p7 + 4.0 * r7, 7.0 * n7,
-                 f"{len(xs)} payload leaves, {n7} elements"),
         time_one("gather_quantize_q4",
                  lambda: [wire.gather_quantize_q4(x, i) for x, i in enc],
                  lambda: [ref.gather_quantize_q4_ref(x, i) for x, i in enc],
@@ -566,9 +638,9 @@ def plain_twins():
     from repro_torch.kernels import compact, group_norms, ref, ssd_scan, wire
     with contextlib.ExitStack() as st:
         st.enter_context(patched(
-            compact, "gather_groups",
-            lambda x, idx, slice_rows=1: ref.gather_groups_ref(
-                x, idx, slice_rows)))
+            compact, "gather_table",
+            lambda jobs: [ref.gather_groups_ref(x, i, p, g)
+                          for x, i, p, g in jobs]))
         st.enter_context(patched(group_norms, "group_norms_sq",
                                  ref.group_norms_sq_ref))
         st.enter_context(patched(
@@ -590,7 +662,8 @@ def round_operands(torch, bundle, lead, dev, idxs=None):
     inter-node boundary's compaction of a (lead, ...) payload by every
     rule (by ``idxs``, {rule: kept groups}, or a random sorted choice) and
     its zero-fill expansion, and every scored leaf's view for the mask
-    scores.  Returns (gather calls, group-norm calls)."""
+    scores.  Returns (the job lists of the round's ``compact.gather_table``
+    launches, group-norm views)."""
     from repro_torch.core.shrinkage import compact_params, expand_params
     from repro_torch.core.sparsity import group_scores
     from repro_torch.kernels import compact, group_norms
@@ -609,66 +682,195 @@ def round_operands(torch, bundle, lead, dev, idxs=None):
         idxs = {r.name: random_idx(r) for r in plan.rules}
     fulls = {r.name: r.groups for r in plan.rules}
     gathers, norms = [], []
-    with recorded(compact, "gather_groups", gathers):
+    with recorded(compact, "gather_table", gathers, lambda jobs: list(jobs)):
         pc = compact_params(payload, plan, idxs, offset=1)
         expand_params(pc, plan, idxs, fulls, offset=1)
     with recorded(group_norms, "group_norms_sq", norms):
         for rule in plan.rules:
             group_scores(payload, rule, offset=1)
     torch.cuda.synchronize()
-    return ([(a[0], a[1], k.get("slice_rows", 1)) for a, k in gathers],
-            [a[0] for a, _ in norms])
+    return gathers, [a[0] for a, _ in norms]
 
 
-def check_gather(torch, gathers, dev):
+def run_gathers(compact, calls):
+    """Launch every recorded job list (x, idx, slice_rows, g) as the path
+    does: one ``compact.gather_table`` call each."""
+    return [compact.gather_table(jobs) for jobs in calls]
+
+
+def _gather_dims(x, idx, g):
+    """(R, C, Q, S, B) of a job, B in channels."""
+    R, C = x.shape[:2]
+    Q = x.shape[2] if x.ndim == 3 else 1
+    S = idx.shape[0] if idx.ndim == 2 else 1
+    return R, C, Q, S, idx.shape[-1] * g
+
+
+def _gather_out(x, idx, g) -> int:
+    """Elements a job writes."""
+    R, C, Q, S, B = _gather_dims(x, idx, g)
+    return R * B * Q
+
+
+def _gather_bytes(x, idx, g) -> tuple[float, float]:
+    """(the bytes the gather must move: each output element written once,
+    each kept input element read once (an expansion reads its compact
+    input, not the zeros), the index once; the older formula of this
+    bound: each output element read and written)."""
+    R, C, Q, S, B = _gather_dims(x, idx, g)
+    e = x.element_size()
+    out = R * B * Q * e
+    return (out + min(out, R * C * Q * e) + 4.0 * idx.numel(),
+            2.0 * out + 4.0 * idx.numel())
+
+
+def _gather_library(torch, jobs):
+    """The operands of one PyTorch call computing each gather,
+    ``torch.take_along_dim`` on the (R / (S P), S, P, C/g + pad, g Q)
+    view with the index broadcast over it: int64 indices, and an
+    expansion's input padded by one zero group beforehand (no PyTorch
+    gather writes zeros for an index past the end)."""
+    out = []
+    for x, idx, p, g in jobs:
+        R, C, Q, S, B = _gather_dims(x, idx, g)
+        i2 = idx.reshape(S, -1).long()
+        xv = x.reshape(R, C // g, g * Q)
+        if C < B:
+            xv = torch.nn.functional.pad(xv, (0, 0, 0, 1))
+        out.append((xv.reshape(R // (S * p), S, p, xv.shape[1], g * Q),
+                    i2.view(1, S, 1, -1, 1)))
+    return out
+
+
+def _gather_plan(compact, x, idx, p, g):
+    """The kernel's plan of one job (an output of aligned base)."""
+    R, C, Q, S, B = _gather_dims(x, idx, g)
+    return compact.plan(R, C, Q, S, B, p, g, x.element_size(),
+                        (x.data_ptr() % 16, 0))
+
+
+def _gather_edges(torch, compact, gen, dev):
+    """[(jobs, what)]: gathers off the main paths' shapes, each one
+    launch: prime R, B = 1, odd C, f32/bf16/int8/uint8, kept groups of
+    g > 1 with Q > 1 and S > 1, expansions that read the index C/g as
+    zeros, a base 4 bytes off alignment, and a table over one launch's
+    capacity."""
+    from repro_torch.kernels import ref
+
+    def idx(C, B, S=1):
+        return torch.stack([torch.sort(torch.randperm(
+            C, generator=gen, device=dev)[:B]).values for _ in range(S)]
+            ).to(torch.int32)
+
+    def rnd(*shape, dt=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * 40).to(dt)
+    out = []
+    for dt in (torch.float32, torch.bfloat16, torch.int8, torch.uint8):
+        for R, C, B in ((13, 33, 1), (7, 10, 5), (1, 1, 1), (31, 257, 128)):
+            out.append(([(rnd(R, C, dt=dt), idx(C, B)[0], 1, 1)],
+                        f"{dt} ({R}, {C}) -> {B}"))
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        kept = idx(6, 3, 3)
+        x = rnd(2 * 3 * 5, 6 * 8, 5, dt=dt)
+        c = ref.gather_groups_ref(x, kept, 5, 8)
+        out.append(([(x, kept, 5, 8), (c, ref.inverse_index(kept, 6), 5, 8)],
+                    f"{dt} g = 8, Q = 5, S = 3, and its expansion"))
+    buf = rnd(37 * 48 * 64 + 1)
+    out.append(([(buf[1:].view(37, 48, 64), idx(48, 24)[0], 1, 1),
+                 (buf[1:].view(37, 48 * 64), idx(384, 192)[0], 1, 8)],
+                "a base 4 bytes off, Q = 64 and g = 8"))
+    out.append(([(rnd(3 + i % 4, 16, 1 + i % 3), idx(2, 1)[0], 1, 8)
+                 for i in range(compact.CAPACITY + 3)],
+                f"{compact.CAPACITY + 3} leaves (two launches)"))
+    return out
+
+
+def check_gather(torch, calls, dev, label="resnet18"):
     """gather_groups vs the plain version, bit for bit, on one dynamic
-    round's compactions and expansions (``round_operands``), on prime
-    rows, B = 1, odd C and int8/uint8/bf16 payloads; timed against the
-    plain version and ``torch.index_select``."""
-    from repro_torch.kernels import compact, ref
+    round's compactions and expansions (``round_operands``: one launch a
+    rule and direction) and on edge cases
+    (``_gather_edges``); timed against the plain version, the library
+    call (``_gather_library``) and the bound, over the round, per run
+    width (g·Q·elem bytes) and per launch beside its plan."""
+    from repro_torch.kernels import compact, ops, ref
     gen = torch.Generator(device=dev).manual_seed(5)
+    jobs = [j for c in calls for j in c]
     err = 0.0
-    for x, idx, p in gathers:
-        out = compact.gather_groups(x, idx, slice_rows=p)
-        plain = ref.gather_groups_ref(x, idx, p)
-        if not _same(torch, out, plain):
-            raise AssertionError(f"gather_groups {tuple(x.shape)} differs "
-                                 "from the plain version")
-        err = max(err, _abs_err(torch, out, plain))
-    edges = 0
-    for R, C, B in ((13, 33, 1), (7, 10, 5), (1, 1, 1), (31, 257, 128)):
-        base = torch.randn((R, C), generator=gen, device=dev) * 40
-        idx = torch.sort(torch.randperm(C, generator=gen, device=dev)[:B]
-                         ).values.to(torch.int32)
-        for dt in (torch.float32, torch.bfloat16, torch.int8, torch.uint8):
-            x = base.to(dt)
-            out = compact.gather_groups(x, idx)
-            plain = ref.gather_groups_ref(x, idx)
+    for c, outs in zip(calls, run_gathers(compact, calls)):
+        for (x, i, p, g), out in zip(c, outs):
+            plain = ref.gather_groups_ref(x, i, p, g)
             if not _same(torch, out, plain):
-                raise AssertionError(f"gather_groups {dt} ({R}, {C}) -> "
-                                     f"{B} differs from the plain version")
+                raise AssertionError(f"gather_groups {tuple(x.shape)} g {g} "
+                                     "differs from the plain version")
             err = max(err, _abs_err(torch, out.float(), plain.float()))
-            edges += 1
+    edges = _gather_edges(torch, compact, gen, dev)
+    for ejobs, what in edges:
+        ops.reset_launch_counts()
+        outs = run_gathers(compact, [ejobs])[0]
+        want = -(-len(ejobs) // compact.CAPACITY)
+        if ops.launch_counts()["gather_groups"] != want:
+            raise AssertionError(f"gather_groups {what}: "
+                                 f"{ops.launch_counts()['gather_groups']} "
+                                 f"launches, not {want}")
+        for (x, i, p, g), out in zip(ejobs, outs):
+            plain = ref.gather_groups_ref(x, i, p, g)
+            if not _same(torch, out, plain):
+                raise AssertionError(f"gather_groups {what} differs from "
+                                     "the plain version")
+            err = max(err, _abs_err(torch, out.float(), plain.float()))
     torch.cuda.synchronize()
-    n = sum(idx.shape[-1] * x.numel() // x.shape[1] for x, idx, _ in gathers)
-    say(f"gather_groups check: one dynamic round's {len(gathers)} "
-        f"compactions and expansions ({n} elements out) and {edges} edge "
-        "cases (prime R, B = 1, odd C; f32/bf16/int8/uint8) bit-equal to "
-        f"the plain version; max abs err {err}")
-    nbytes = sum(2.0 * idx.shape[-1] * x.numel() // x.shape[1]
-                 * x.element_size() + 4.0 * idx.numel()
-                 for x, idx, _ in gathers)
+    n = sum(_gather_out(x, i, g) for x, i, _, g in jobs)
+    zeros = sum(x.shape[1] < i.shape[-1] * g for x, i, _, g in jobs)
+    say(f"gather_groups check ({label}): one dynamic round's {len(jobs)} "
+        f"compactions and expansions in {len(calls)} launches ({zeros} "
+        f"expansions; {n} elements out) and {len(edges)} edge launches "
+        "(prime R, B = 1, odd C in f32/bf16/int8/uint8"
+        + "".join(f"; {w}" for _, w in edges if "->" not in w)
+        + f") bit-equal to the plain version; max abs err {err}")
+    nbytes = sum(_gather_bytes(x, i, g)[0] for x, i, _, g in jobs)
+    old = sum(_gather_bytes(x, i, g)[1] for x, i, _, g in jobs)
     b_ms, b_by = bound(nbytes, 0.0)
-    ms, stream = kernel_ms(lambda: [compact.gather_groups(x, i, slice_rows=p)
-                                    for x, i, p in gathers], 20)
-    plain_ms, _ = kernel_ms(lambda: [ref.gather_groups_ref(x, i, p)
-                                     for x, i, p in gathers], 5)
-    lib_ms, _ = kernel_ms(lambda: [torch.index_select(x, 1, i.reshape(-1))
-                                   for x, i, _ in gathers], 20)
-    say(f"gather_groups: one dynamic round's {len(gathers)} gathers, {n} "
-        f"elements: kernel {ms:.4f} ms on the device ({stream:.4f} ms on "
-        f"the stream), plain {plain_ms:.4f} ms, library (index_select) "
-        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    ms, stream = kernel_ms(lambda: run_gathers(compact, calls), 20)
+    plain_ms, _ = kernel_ms(lambda: [ref.gather_groups_ref(*j)
+                                     for j in jobs], 5)
+    lib = _gather_library(torch, jobs)
+    lib_ms, _ = kernel_ms(lambda: [torch.take_along_dim(x, i, dim=3)
+                                   for x, i in lib], 20)
+    say(f"gather_groups ({label}): one dynamic round's {len(jobs)} gathers "
+        f"in {len(calls)} launches, {n} elements: kernel {ms:.4f} ms on "
+        f"the device ({stream:.4f} ms on the stream), plain {plain_ms:.4f} "
+        f"ms, library (take_along_dim, expansions from a padded copy) "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{100 * b_ms / ms:.1f}% of it reached; older formula "
+        f"{bound(old, 0.0)[0]:.4f} ms)")
+    widths = {}
+    for j in jobs:
+        R, C, Q, S, B = _gather_dims(j[0], j[1], j[3])
+        widths.setdefault(j[3] * Q * j[0].element_size(), []).append(j)
+    for w, cls in sorted(widths.items()):
+        c_ms, c_st = kernel_ms(lambda: compact.gather_table(cls), 10)
+        c_b, _ = bound(sum(_gather_bytes(x, i, g)[0]
+                           for x, i, _, g in cls), 0.0)
+        units = sorted({_gather_plan(compact, *j).unit for j in cls})
+        small = sum(_gather_bytes(x, i, g)[0] < 1e6 for x, i, _, g in cls)
+        say(f"gather_groups ({label}) runs of {w} B: {len(cls)} gathers "
+            f"({small} under 1 MB) in {-(-len(cls) // compact.CAPACITY)} "
+            "launch(es), "
+            f"{c_b * HBM_BYTES_PER_S / 1e9:.3f} MB, units {units} "
+            f"B: kernel {c_ms:.4f} ms on the device ({c_st:.4f} ms on the "
+            f"stream), bound {c_b:.4f} ms ({100 * c_b / c_ms:.1f}% of it "
+            "reached)")
+    for k, c in enumerate(calls):
+        c_ms, c_st = kernel_ms(lambda: compact.gather_table(c), 10)
+        c_b, _ = bound(sum(_gather_bytes(x, i, g)[0] for x, i, _, g in c),
+                       0.0)
+        plans = [_gather_plan(compact, *j) for j in c]
+        runs = sorted({p.L * p.unit for p in plans})
+        say(f"gather_groups ({label}) launch {k}: {len(c)} leaves, runs "
+            f"{runs} B, units {sorted({p.unit for p in plans})} B, "
+            f"{sum(p.tiles for p in plans)} blocks: kernel {c_ms:.4f} ms on "
+            f"the device ({c_st:.4f} ms on the stream), bound {c_b:.4f} ms "
+            f"({100 * c_b / c_ms:.1f}% of it reached)")
     return [{"name": "gather_groups", "route": "cuda", "source": GATHER_SRC,
              "replaces": "src/repro/kernels/compact.py:23",
              "max_abs_err": err, "ms": ms, "stream_ms": stream,
@@ -838,13 +1040,12 @@ def check_group_norms(torch, norms, dev, label="resnet18"):
         f"on the stream), plain {plain_ms:.4f} ms, library (einsum) "
         f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
         f"{100 * b_ms / ms:.1f}% of it reached)")
-    plan = getattr(group_norms, "plan", None)
     for i, v in enumerate(views):
         shape = v.shape if v.ndim == 4 else v.shape[:2] + (1,) + v.shape[2:]
         st = v.stride() if v.ndim == 4 else v.stride()[:2] + (0,) \
             + v.stride()[2:]
-        how = plan(shape, st, v.element_size(), v.data_ptr()).describe() \
-            if plan else "n/a"
+        how = group_norms.plan(shape, st, v.element_size(),
+                               v.data_ptr()).describe()
         k_ms = sum(x[0] for x in kernel_split(
             lambda: group_norms.group_norms_sq(v), 10).values())
         e_ms = sum(x[0] for x in kernel_split(
@@ -926,11 +1127,14 @@ def run_q8(torch, dev, rounds: int = 6, deterministic: bool = True):
 
 
 def round_launches(plan) -> tuple[int, int]:
-    """(gathers, group-norm views) one dynamic round of phase 3's path
-    launches: each compactable rule compacts and expands every leaf it
-    slices at the one compacting boundary, and scores its scored
-    leaves."""
-    n = sum(len(r.all_leaves) for r in plan.rules if r.compactable)
+    """(gather launches, group-norm views) of one dynamic round of phase
+    3's path: each compactable rule compacts and expands all the leaves
+    it slices at the one compacting boundary, one launch each way (one
+    more for each leaf the rule slices twice: ``leaf_parts``), and scores
+    its scored leaves."""
+    from repro_torch.core.shrinkage import leaf_parts
+    n = sum(len(leaf_parts(r.all_leaves)) for r in plan.rules
+            if r.compactable)
     return 2 * n, sum(len(r.leaves) for r in plan.rules)
 
 
@@ -1114,7 +1318,7 @@ def profile_round(torch, eng, state, shape, label="frozen", eta=1e-2):
     eta = torch.tensor(eta, device=eng.device)
     t0 = time.perf_counter()
     evs = device_events(lambda: step(state, sb, eta), 1)
-    wall = (time.perf_counter() - t0) / 2      # warm-up + profiled run
+    wall = (time.perf_counter() - t0 - 0.01) / 2   # warm-up + profiled run
     if not evs:
         raise RuntimeError("profile: the profiler recorded no device events")
     by_name = defaultdict(lambda: [0.0, 0])
@@ -1151,7 +1355,7 @@ def profile_round(torch, eng, state, shape, label="frozen", eta=1e-2):
             cats["quantize_rows kernel"] += ms
         elif "q4" in low:
             cats["q4 wire kernels"] += ms
-        elif "namespace)::gather_kernel" in low or "norms_" in low \
+        elif "gather_table_kernel" in low or "norms_" in low \
                 or "gather_quantize" in low or "gather_dequantize" in low:
             cats["gather / group-norm kernels"] += ms
         elif any(t in low for t in ("conv", "xmma", "gemm", "wgrad",
@@ -1225,11 +1429,11 @@ def smoke_resnet_cpu_vs_card(torch, dev):
                             ("images", "labels"), 1e-2, "smoke round")
 
 
-def train_reconfig(torch, dev):
-    """Phase 3b: the main path of physical reconfiguration over the
-    compact+q4 inter-node wire.  Returns a dict of the launch totals, the
-    reconfigured engine, final state, shape, report, the mask indices
-    after every round and memory facts."""
+def run_reconfig(torch, dev):
+    """Phase 3b's configuration trained through the port's ``train``,
+    with the launch counts, mask indices, peak and held memory of every
+    round.  Returns a dict of them, the engine, shape, final state,
+    report, launch totals and wall time."""
     from repro_torch.configs import (ConsensusSpec, HsadmmConfig,
                                      ShapeConfig, get_config)
     from repro_torch.kernels import ops
@@ -1266,6 +1470,21 @@ def train_reconfig(torch, dev):
     totals = ops.launch_counts()
     launches = [{k: c[k] - (per_round[i - 1][k] if i else 0) for k in c}
                 for i, c in enumerate(per_round)]
+    return {"eng": eng, "shape": shape, "state": state, "rep": rep,
+            "totals": totals, "launches": launches, "masks": masks,
+            "peaks": peaks, "held": held, "wall": wall}
+
+
+def train_reconfig(torch, dev):
+    """Phase 3b: the main path of physical reconfiguration over the
+    compact+q4 inter-node wire (``run_reconfig``), checked.  Returns a
+    dict of the launch totals, the reconfigured engine, final state,
+    shape, report, the mask indices after every round and memory
+    facts."""
+    r = run_reconfig(torch, dev)
+    eng, shape, state, rep = r["eng"], r["shape"], r["state"], r["rep"]
+    totals, launches, masks = r["totals"], r["launches"], r["masks"]
+    peaks, held, wall = r["peaks"], r["held"], r["wall"]
     rc = rep.final_engine
     say(f"train reconfig: resnet18 full, W=16 levels (4, 4), compact+q4, "
         f"reconfig patience 1, {rep.outer_iters} rounds in {wall:.2f} s; "
@@ -1310,7 +1529,7 @@ def train_reconfig(torch, dev):
     gathers, views = round_launches(eng.bundle.plan)
     for k, c in enumerate(launches):
         want_g = gathers + (6 * gathers // 2 if k == r else 0)
-        if c["fused_prox_sgd_dyn"] != 62 * 8 or c["quantize_pack_q4"] != 62 \
+        if c["fused_prox_sgd_dyn"] != 62 * 8 or c["quantize_pack_q4"] != 1 \
                 or c["quantize_rows"] != 0 or c["gather_groups"] != want_g \
                 or c["group_norms_sq"] != (
                     views if rep.executables[k] == "dynamic" else 0):
@@ -1748,16 +1967,16 @@ def profile_mamba(torch, mamba, dev):
             x.numel(), 28.0 * x.numel() + 4.0 * x.shape[0]),
         "quantize_rows": lambda x, *a, **k: (
             x.numel(), 5.0 * x.numel() + 4.0 * x.shape[0]),
-        "gather_groups": lambda x, idx, *a, **k: (
-            idx.shape[-1] * x.numel() // x.shape[1],
-            2.0 * idx.shape[-1] * x.numel() // x.shape[1] * x.element_size()
-            + 4.0 * idx.numel())}
+        "gather_groups": lambda jobs: (
+            sum(_gather_out(x, i, g) for x, i, _, g in jobs),
+            sum(_gather_bytes(x, i, g)[0] for x, i, _, g in jobs))}
     calls = {name: [] for name in sized}
     with contextlib.ExitStack() as st:
-        for mod, name in ((fp, "fused_prox_sgd_dyn"),
-                          (wire, "quantize_rows"),
-                          (compact, "gather_groups")):
-            st.enter_context(recorded(mod, name, calls[name], sized[name]))
+        for mod, name, entry in ((fp, "fused_prox_sgd_dyn", None),
+                                 (wire, "quantize_rows", None),
+                                 (compact, "gather_groups", "gather_table")):
+            st.enter_context(recorded(mod, entry or name, calls[name],
+                                      sized[name]))
         busy, by_name = profile_round(torch, eng, mamba["state"],
                                       mamba["shape"], label="mamba2 frozen",
                                       eta=1e-3)
@@ -1767,24 +1986,25 @@ def profile_mamba(torch, mamba, dev):
         n, nbytes = sum(c[0] for c in cs), sum(c[1] for c in cs)
         ops, tag = {"fused_prox_sgd_dyn": (8.0 * n, "prox_sgd"),
                     "quantize_rows": (7.0 * n, "quantize_rows_kernel"),
-                    "gather_groups": (0.0, "namespace)::gather_kernel")}[name]
+                    "gather_groups": (0.0, "gather_table_kernel")}[name]
         ms = sum(v[0] for k, v in by_name.items() if tag in k)
         cnt = sum(v[1] for k, v in by_name.items() if tag in k)
         rows[name] = (ms, cnt, len(cs), n, *bound(nbytes, ops))
     gathers, norms = round_operands(
         torch, eng.bundle, 2, dev,
         {k: m["idx"] for k, m in mamba["state"]["masks"].items()})
+    lib_ops = _gather_library(torch, [j for c in gathers for j in c])
     n = sum(v.numel() for v in norms)
     ms, _ = kernel_ms(lambda: [group_norms.group_norms_sq(v)
                                for v in norms], 5)
     lib = {"group_norms_sq": kernel_ms(
         lambda: [_einsum(torch, v) for v in norms], 5)[0],
         "gather_groups": kernel_ms(
-        lambda: [torch.index_select(x, 1, i.reshape(-1))
-                 for x, i, _ in gathers], 5)[0]}
+        lambda: [torch.take_along_dim(x, i, dim=3) for x, i in lib_ops],
+        5)[0]}
     rows["group_norms_sq"] = (ms, len(norms), len(norms), n,
                               *_norms_bound(torch, norms))
-    del norms, gathers
+    del norms, gathers, lib_ops
     for name, (ms, cnt, ncalls, n, b_ms, b_by) in rows.items():
         say(f"mamba2 kernel {name}: {ms:.4f} ms on the device in "
             f"{cnt} launches ({ncalls} wrapper calls) per "
@@ -1793,20 +2013,21 @@ def profile_mamba(torch, mamba, dev):
             + f", {n} elements; bound {b_ms:.4f} ms ({b_by}), "
             f"{100 * b_ms / ms:.1f}% of it reached; library "
             + (f"{lib[name]:.4f} ms ("
-               + ("einsum" if name == "group_norms_sq" else "index_select")
+               + ("einsum" if name == "group_norms_sq"
+                  else "take_along_dim, expansions from a padded copy")
                + " on one dynamic round's operands)" if name in lib
                else "none"))
     return busy
 
 
 def wire_phase(torch, dev):
-    """``--wire``: quantize_rows and group_norms_sq at phase 2's ResNet-18
-    operands and at Mamba2's (phase 6a's configuration: the 17 compact
-    payload leaves of a round at 2 nodes, one dynamic round's 9 score
-    views), from seeded synthetic data; the checks and times of phase 2,
-    per width class and per view.  Run the same script in a ``git
-    archive`` copy of another tree, in the same call, to compare its
-    kernels."""
+    """``--wire``: quantize_rows, quantize_pack_q4, gather_groups and
+    group_norms_sq at phase 2's ResNet-18 operands and at Mamba2's (phase
+    6a's configuration: the 17 compact payload leaves of a round at 2
+    nodes, one dynamic round's gathers and 9 score views), from seeded
+    synthetic data; the checks and times of phase 2, per width class, per
+    run width, per launch and per view (quantize_pack_q4 at ResNet's 62
+    payload views only: Mamba2 runs no q4 wire)."""
     from repro_torch.configs import get_config
     from repro_torch.core.masks import MaskSyncConfig, budget
     from repro_torch.core.shrinkage import plan_payload_shapes
@@ -1822,12 +2043,39 @@ def wire_phase(torch, dev):
         payload = plan_payload_shapes(bundle.shapes, bundle.plan, budgets)
         for k in check_quantize(torch, payload, lead, dev, label):
             kernels.append(dict(k, operands=label))
-        _, norms = round_operands(torch, bundle, lead, dev)
+        if label == "resnet18":
+            for k in check_q4_pack(torch, payload, lead, dev, label):
+                kernels.append(dict(k, operands=label))
+        gathers, norms = round_operands(torch, bundle, lead, dev)
+        for k in check_gather(torch, gathers, dev, label):
+            kernels.append(dict(k, operands=label))
+        del gathers
         for k in check_group_norms(torch, norms, dev, label):
             kernels.append(dict(k, operands=label))
         del norms, bundle
         torch.cuda.empty_cache()
     return kernels
+
+
+def rounds_phase(torch, dev):
+    """``--rounds``: phase 3b's reconfigured run and phase 3's q8 run
+    alone, unchecked, printing each round's wall, the steady medians and
+    the peak of the full-width rounds: run it in turns with a copy in a
+    ``git archive`` of another tree, in one call, to compare the round
+    times of two trees (it drives only the port's public entry points)."""
+    rc = run_reconfig(torch, dev)
+    rep = rc["rep"]
+    r = rep.reconfigured_at
+    walls = [w * 1e3 for w in rep.wall_times]
+    q8 = run_q8(torch, dev)
+    w8 = [w * 1e3 for w in q8["rep"].wall_times]
+    out = {"reconfigured_walls": walls[r + 1:],
+           "reconfigured_median": _median(walls[r + 1:]),
+           "full_walls": walls[1:r], "q8_walls": w8[1:],
+           "q8_median": _median(w8[1:]),
+           "peak_full": max(rc["peaks"][:r])}
+    say(f"rounds: {json.dumps(out)}")
+    return []
 
 
 def _slim(r):
@@ -1870,8 +2118,9 @@ def smoke_mamba_cpu_vs_card(torch, dev):
 
 
 def main(argv) -> int:
-    if argv not in ([], ["--ssd"], ["--wire"]):
-        return fail(f"usage: chip_smoke.py [--ssd | --wire] (got {argv})")
+    if argv not in ([], ["--ssd"], ["--wire"], ["--rounds"]):
+        return fail("usage: chip_smoke.py [--ssd | --wire | --rounds] "
+                    f"(got {argv})")
     try:
         import torch
     except ImportError:
@@ -1900,9 +2149,9 @@ def main(argv) -> int:
         for name, log in logs.items():
             for line in ptxas_lines(log):
                 say(f"  ptxas {name}: {line}")
-        if argv:   # --ssd: phase 6 alone; --wire: the two row kernels
-            kernels = (check_ssd if argv == ["--ssd"] else wire_phase)(
-                torch, dev)
+        if argv:   # --ssd: phase 6; --wire: the wire kernels; --rounds
+            kernels = {"--ssd": check_ssd, "--wire": wire_phase,
+                       "--rounds": rounds_phase}[argv[0]](torch, dev)
             for line in smi:
                 say(line)
             say(json.dumps({"kernels": kernels}))
@@ -1914,6 +2163,7 @@ def main(argv) -> int:
         payload = plan_payload_shapes(bundle.shapes, bundle.plan, budgets)
         kernels = check_prox(torch, bundle.shapes, 16, dev)
         kernels += check_quantize(torch, payload, 4, dev)
+        kernels += check_q4_pack(torch, payload, 4, dev)
         kernels += check_q4(torch, bundle.shapes, payload, 4, dev)
         gathers, norms = round_operands(torch, bundle, 4, dev)
         kernels += check_gather(torch, gathers, dev)

@@ -215,7 +215,8 @@ class Q4Codec(WireCodec):
 
     Rows of the (R, C) leaf view quantize to [-7, 7] (two's-complement
     nibbles, one f32 scale per row) and pack pairwise into uint8 — one
-    launch of the hand-written ``quantize_pack_q4`` kernel per leaf; the
+    launch of the hand-written ``quantize_pack_q4`` kernel for every leaf
+    of a ``group_reduce`` call; the
     fused gather+pack and unpack+dequantize(+zero-fill) kernels serve the
     compact encode/decode pair.  The ring exchange rolls the PACKED
     buffer, so the bytes that cross the fabric are exactly ``wire_bytes``
@@ -259,11 +260,7 @@ class Q4Codec(WireCodec):
             hi = (s8 >> 4).to(torch.float32) * ss
             return lo, hi
 
-        def one(x):
-            xw = x * _wbcast(w, x) if w is not None else x
-            v = _member_rows(xw)
-            C = v.shape[-1]
-            p, scale = ops.quantize_pack_q4(v)
+        def one(x, C, p, scale):
             G = x.shape[0] // g
             # accumulate the nibble PLANES in ring order (own buffer first,
             # then each shift by one); interleave once at the end
@@ -282,7 +279,13 @@ class Q4Codec(WireCodec):
             acc = acc.reshape(tuple(acc_lo.shape[:-1]) + (-1,))[..., :C]
             out = acc.reshape((G, g) + tuple(acc.shape[1:]))[:, 0]
             return out.reshape((G,) + tuple(x.shape[1:])).to(x.dtype)
-        return {k: one(x) for k, x in tree.items()}, state
+
+        # every member's weighted leaf, then one launch encodes them all
+        views = [_member_rows(x * _wbcast(w, x) if w is not None else x)
+                 for x in tree.values()]
+        enc = ops.quantize_pack_q4_leaves(views)
+        return {k: one(x, v.shape[-1], p, s) for (k, x), v, (p, s)
+                in zip(tree.items(), views, enc)}, state
 
     def wire_bytes(self, leaf_shape, dtype) -> int:
         C = leaf_shape[-1] if len(leaf_shape) else 1

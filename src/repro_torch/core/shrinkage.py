@@ -14,8 +14,9 @@ budget-B shapes and the round runs over the smaller dense model.
 ``shrunk_plan`` builds the matching all-kept plan.  The port has no
 stateful wire codec yet, so there is no error-feedback state to migrate.
 
-Every compaction and expansion of a payload or state leaf is one launch
-of the hand-written gather kernel on the card (``kernels.ops.gather_axis``;
+Every rule's compaction or expansion of a payload or state tree is one
+launch of the hand-written gather kernel on the card, for all the leaves
+it slices, in runs of whole kept groups (``kernels.ops.gather_leaves``;
 the plain ``take_along_dim`` on the CPU): the kept groups are copied
 exactly, so the result is the same either way.
 """
@@ -24,7 +25,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 
 from ..kernels import ops, ref
 from .coupling import validate_compaction_order
@@ -45,7 +45,7 @@ def _global_idx(idx, C: int, shards: int):
 def compact_leaf(x, idx, ax: int, stack_ndims: int, offset: int = 0,
                  shards: int = 1):
     """Gather kept groups along ``ax``: (..., C, ...) -> (..., B, ...),
-    one launch of the gather kernel (``kernels.ops.gather_axis``); the
+    one launch of the gather kernel (``kernels.ops.gather_leaves``); the
     ``stack_ndims`` dims of ``idx`` before B are x's axes from
     ``offset`` on.
 
@@ -56,16 +56,7 @@ def compact_leaf(x, idx, ax: int, stack_ndims: int, offset: int = 0,
     if gidx.ndim - 1 != stack_ndims:
         raise ValueError(f"compact_leaf: index of shape {tuple(idx.shape)} "
                          f"for {stack_ndims} stack dims and {shards} shards")
-    return ops.gather_axis(x, gidx, ax, offset)
-
-
-def _pad_one(c, ax: int):
-    """Append one zero slot along axis ``ax``."""
-    return F.pad(c, [0, 0] * (c.ndim - 1 - ax) + [0, 1])
-
-
-def _expand(c, inv, ax: int, offset: int):
-    return ops.gather_axis(_pad_one(c, ax), inv, ax, offset)
+    return ops.gather_leaves([x], gidx, [ax], offset)[0]
 
 
 def _inverse(idx, full: int, shards: int):
@@ -75,46 +66,69 @@ def _inverse(idx, full: int, shards: int):
 def expand_leaf(c, idx, ax: int, full: int, stack_ndims: int,
                 offset: int = 0, shards: int = 1):
     """Zero-fill recovery: (..., B, ...) -> (..., C, ...) (paper §4.4.3),
-    as an inverse-permutation gather from the compact buffer padded by one
-    zero group: a scatter into the big tensor would need a full-size index
-    tensor; the inverse map is built by a scatter on the tiny (stack, C)
-    index array."""
-    return _expand(c, _inverse(idx, full, shards), ax, offset)
+    as an inverse-permutation gather of the compact buffer whose dropped
+    positions (index B) the kernel writes as zeros: a scatter into the big
+    tensor would need a full-size index tensor; the inverse map is built
+    by a scatter on the tiny (stack, C) index array."""
+    return ops.gather_leaves([c], _inverse(idx, full, shards), [ax],
+                             offset)[0]
+
+
+def leaf_parts(leaves) -> list[list]:
+    """``leaves`` in order, cut where a key repeats: each part is one
+    launch of the gather kernel, and a leaf sliced twice by one rule (a
+    bottleneck conv2 on its input and output axes) is cut by the second
+    after the first."""
+    parts, keys = [[]], set()
+    for la in leaves:
+        if la.key in keys:
+            parts.append([])
+            keys = set()
+        parts[-1].append(la)
+        keys.add(la.key)
+    return parts
+
+
+def _gather_rule(params: dict, rule: GroupRule, idx, leaves,
+                 offset: int) -> None:
+    """Gather every leaf of ``leaves`` along its rule axis by the kept
+    groups ``idx`` (group units, every shard's block global), in place of
+    ``params``: one launch a part of :func:`leaf_parts`."""
+    for part in leaf_parts(leaves):
+        outs = ops.gather_leaves(
+            [params[la.key] for la in part], idx,
+            [la.axes[0] + offset for la in part], offset, rule.group_size)
+        params.update((la.key, o) for la, o in zip(part, outs))
 
 
 def compact_params(params: dict, plan: SparsityPlan, idxs: dict,
                    offset: int = 0) -> dict:
     """Slice every compactable rule's kept groups out of every
-    participating leaf (scored members AND followers), in plan order."""
+    participating leaf (scored members AND followers), in plan order: one
+    launch of the gather kernel a rule, in runs of whole groups."""
     validate_compaction_order(plan)
     params = dict(params)
     for rule in plan.rules:
         if not rule.compactable:
             continue  # projection-only rule (paper slices filter/channel only)
-        # int32 once per rule: the index the gather kernel reads
-        idx = channel_idx(rule, idxs[rule.name]).to(torch.int32)
-        for la in rule.all_leaves:
-            params[la.key] = compact_leaf(params[la.key], idx,
-                                          la.axes[0] + offset,
-                                          rule.stack_ndims, offset,
-                                          rule.shards)
+        gidx = _global_idx(idxs[rule.name], rule.groups, rule.shards)
+        _gather_rule(params, rule, gidx, rule.all_leaves, offset)
     return params
 
 
 def expand_params(params: dict, plan: SparsityPlan, idxs: dict,
                   fulls: dict, offset: int = 0) -> dict:
-    """Inverse of :func:`compact_params` (rules applied in reverse order).
-    ``fulls`` is in the rule's group (block) units, like the budgets."""
+    """Inverse of :func:`compact_params` (rules applied in reverse order,
+    one launch a rule).  ``fulls`` is in the rule's group (block) units,
+    like the budgets."""
     validate_compaction_order(plan)
     params = dict(params)
     for rule in reversed(plan.rules):
         if not rule.compactable:
             continue
-        inv = _inverse(channel_idx(rule, idxs[rule.name]),
-                       fulls[rule.name] * rule.group_size, rule.shards)
-        for la in reversed(rule.all_leaves):
-            params[la.key] = _expand(params[la.key], inv,
-                                     la.axes[0] + offset, offset)
+        inv = _inverse(idxs[rule.name], fulls[rule.name], rule.shards)
+        _gather_rule(params, rule, inv, tuple(reversed(rule.all_leaves)),
+                     offset)
     return params
 
 

@@ -264,16 +264,14 @@ __global__ void gather_dequantize_kernel(const int8_t* __restrict__ q,
 // column in the low nibble), one f32 scale max|row| / 7 + 1e-30 per row.
 //
 // Bound on an H100: bytes, like quantize_rows (a few operations per
-// element; 4 B read and half a byte written per element).  Design: one
-// warp per row, eight rows per 256-thread block.  Pass one reduces the
-// row's abs-max with shuffles (NaN-propagating); pass two has each lane
-// quantize the two neighbouring columns of one output byte and store the
-// byte, so every byte is written whole by one thread and no nibble needs
-// a read-modify-write.  The second read of the row comes from L1/L2.  The
-// payload rows of the ResNet-18 consensus are 10 to 256 wide.  Scale and
-// quotient use IEEE division and rintf (round half to even), as the plain
-// PyTorch version and the reference do; a NaN quotient packs 0, as
-// XLA's float-to-int32 convert followed by & 0xF gives.
+// element; 4 B read and half a byte written per element).  The fused
+// gather and unpack kernels below take one warp per row, eight rows per
+// 256-thread block; each lane quantizes the two neighbouring columns of
+// one output byte and stores the byte, so every byte is written whole by
+// one thread and no nibble needs a read-modify-write.  Scale and quotient
+// use IEEE division and rintf (round half to even), as the plain PyTorch
+// version and the reference do; a NaN quotient packs 0, as XLA's
+// float-to-int32 convert followed by & 0xF gives.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float q4_scale(float m) {
@@ -285,31 +283,173 @@ __device__ __forceinline__ unsigned q4_nibble(float v, float sc) {
   return r != r ? 0u : (unsigned)((int)fminf(fmaxf(r, -7.f), 7.f) & 0xF);
 }
 
-// Replaces quantize_pack_q4 of src/repro/kernels/wire.py: x (R, C) f32 ->
-// p (R, ceil(C/2)) uint8, s (R, 1) f32.  An odd C gets a zero high nibble
-// in its last byte.
-__global__ void quantize_pack_q4_kernel(const float* __restrict__ x,
-                                        uint8_t* __restrict__ p,
-                                        float* __restrict__ s, int64_t R,
-                                        int64_t C) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= R) return;
-  const float* xr = x + row * C;
+// Replaces quantize_pack_q4 of src/repro/kernels/wire.py, for many leaves
+// in one launch: leaf i's x (R, C) f32 -> p (R, ceil(C/2)) uint8, s (R, 1)
+// f32; an odd C gets a zero high nibble in its last byte.
+//
+// A consensus round encodes every payload leaf of the q4 ring (ResNet-18:
+// 62, with rows 10 to 256 wide), each far too small to fill the card, so
+// one launch takes a table of up to kQ4Cap leaves by value (a
+// __grid_constant__ parameter: no host-to-device copy).  Each leaf starts
+// at a block number of the table; a block finds its leaf by binary search
+// and runs that leaf's plan (kernels/wire.py: q4_plan), which is
+// quantize_rows's: L lanes a row (256 / L rows a block), each lane holding
+// NV vectors of the row in registers between the abs-max and the
+// quantize, every load issued before the first use; rows too wide for the
+// registers stream, one warp a row, the second read from L1/L2.  Vectors
+// are four floats (16-byte loads, where C % 4 == 0 and the bases allow;
+// two bytes stored) or a pair (two loads, one byte stored), so every
+// output byte is written whole by one thread.  The arithmetic is the
+// per-leaf kernel's (q4_scale, q4_nibble, nan_max), so the result equals
+// the plain version bit for bit.
+
+constexpr int kQ4Cap = 64;    // leaves a launch (kernels/wire.py Q4_CAPACITY)
+constexpr int kQ4Fields = 9;  // int64 fields of one leaf from the wrapper
+
+struct Q4Leaf {
+  const float* x;
+  uint8_t* p;
+  float* s;
+  uint32_t R, C, lanes, nv, vec;   // nv 0: stream (lanes 32)
+  uint32_t first;                  // the leaf's first block
+};
+
+struct Q4Table {
+  Q4Leaf leaf[kQ4Cap];
+  int n;
+};
+
+// vector j of a row: four floats, or the pair of columns 2j, 2j + 1 (the
+// second 0 past an odd row's end)
+template <int V>
+__device__ __forceinline__ void load_vec(const float* xr, int64_t j,
+                                         int64_t C, float (&v)[4]) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(xr + 4 * j));
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    v[0] = __ldg(xr + 2 * j);
+    v[1] = 2 * j + 1 < C ? __ldg(xr + 2 * j + 1) : 0.f;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ float vec_max(float m, const float (&v)[4]) {
+#pragma unroll
+  for (int k = 0; k < V; ++k) m = nan_max(m, fabsf(v[k]));
+  return m;
+}
+
+// the packed bytes of vector j: two (V 4) or one, the pad nibble 0
+template <int V>
+__device__ __forceinline__ void store_vec(uint8_t* pr, int64_t j, int64_t C,
+                                          const float (&v)[4], float sc) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<uint16_t*>(pr + 2 * j) = (uint16_t)(
+        q4_nibble(v[0], sc) | (q4_nibble(v[1], sc) << 4) |
+        (q4_nibble(v[2], sc) << 8) | (q4_nibble(v[3], sc) << 12));
+  } else {
+    const unsigned hi = 2 * j + 1 < C ? q4_nibble(v[1], sc) : 0u;
+    pr[j] = (uint8_t)(q4_nibble(v[0], sc) | (hi << 4));
+  }
+}
+
+// Rows held in registers, as quantize_rows_kernel holds them: lane l of a
+// row takes its vectors l, l + L, ... (NV at most); past the row's end a
+// lane reads its last vector again, and a row past R reads row R - 1
+// (neither is counted or stored), so no load is conditional.
+template <int NV, int V>
+__device__ __forceinline__ void q4_rows(const Q4Leaf& f, uint32_t blk,
+                                        float* warp_max) {
+  const int L = (int)f.lanes;
+  const int sub = threadIdx.x & (L - 1);
+  const int64_t R = f.R, C = f.C;
+  const int64_t row = ((int64_t)blk * blockDim.x + threadIdx.x) / L;
+  const bool active = row < R;
+  const int64_t nvec = (C + V - 1) / V;
+  const float* xr = f.x + (active ? row : R - 1) * C;
+  float v[NV][4];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int64_t j = sub + (int64_t)i * L;
+    load_vec<V>(xr, j < nvec ? j : nvec - 1, C, v[i]);
+  }
   float m = 0.f;
-  for (int64_t c = lane; c < C; c += 32) m = nan_max(m, fabsf(__ldg(xr + c)));
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (sub + (int64_t)i * L < nvec) m = vec_max<V>(m, v[i]);
+  for (int off = (L < 32 ? L : 32) >> 1; off > 0; off >>= 1)
+    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (L > 32) {   // uniform: every thread of the block reaches the barrier
+    if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+    __syncthreads();
+    const int w0 = (threadIdx.x & ~(L - 1)) >> 5;   // the row's first warp
+    m = warp_max[w0];
+    for (int w = 1; w < L / 32; ++w) m = nan_max(m, warp_max[w0 + w]);
+  }
+  if (!active) return;
+  const float sc = q4_scale(m);
+  uint8_t* pr = f.p + row * ((C + 1) >> 1);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int64_t j = sub + (int64_t)i * L;
+    if (j < nvec) store_vec<V>(pr, j, C, v[i], sc);
+  }
+  if (sub == 0) f.s[row] = sc;
+}
+
+// Rows wider than the registers hold: one warp a row, eight rows a block.
+template <int V>
+__device__ __forceinline__ void q4_stream(const Q4Leaf& f, uint32_t blk) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blk * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= f.R) return;
+  const int64_t C = f.C, nvec = (C + V - 1) / V;
+  const float* xr = f.x + row * C;
+  float m = 0.f;
+  for (int64_t j = lane; j < nvec; j += 32) {
+    float v[4];
+    load_vec<V>(xr, j, C, v);
+    m = vec_max<V>(m, v);
+  }
   for (int off = 16; off > 0; off >>= 1)
     m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
   const float sc = q4_scale(m);
-  const int64_t Cp = (C + 1) >> 1;
-  uint8_t* pr = p + row * Cp;
-  for (int64_t j = lane; j < Cp; j += 32) {
-    const int64_t c = 2 * j;
-    const unsigned lo = q4_nibble(__ldg(xr + c), sc);
-    const unsigned hi = c + 1 < C ? q4_nibble(__ldg(xr + c + 1), sc) : 0u;
-    pr[j] = (uint8_t)(lo | (hi << 4));
+  uint8_t* pr = f.p + row * ((C + 1) >> 1);
+  for (int64_t j = lane; j < nvec; j += 32) {
+    float v[4];
+    load_vec<V>(xr, j, C, v);
+    store_vec<V>(pr, j, C, v, sc);
   }
-  if (lane == 0) s[row] = sc;
+  if (lane == 0) f.s[row] = sc;
+}
+
+template <int V>
+__device__ __forceinline__ void q4_leaf(const Q4Leaf& f, uint32_t blk,
+                                        float* warp_max) {
+  switch (f.nv) {
+    case 1: q4_rows<1, V>(f, blk, warp_max); break;
+    case 2: q4_rows<2, V>(f, blk, warp_max); break;
+    case 3: q4_rows<3, V>(f, blk, warp_max); break;
+    case 4: q4_rows<4, V>(f, blk, warp_max); break;
+    case 6: q4_rows<6, V>(f, blk, warp_max); break;
+    default: q4_stream<V>(f, blk); break;
+  }
+}
+
+__global__ void __launch_bounds__(256)
+    quantize_pack_q4_table_kernel(const __grid_constant__ Q4Table t) {
+  __shared__ float warp_max[8];
+  const uint32_t b = blockIdx.x;
+  int lo = 0, hi = t.n - 1;   // the last leaf whose first block is <= b
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.leaf[mid].first <= b) lo = mid;
+    else hi = mid - 1;
+  }
+  const Q4Leaf& f = t.leaf[lo];
+  if (f.vec == 4) q4_leaf<4>(f, b - f.first, warp_max);
+  else q4_leaf<2>(f, b - f.first, warp_max);
 }
 
 // Replaces gather_quantize_q4 of src/repro/kernels/wire.py: the q4 encode
@@ -410,11 +550,27 @@ int gather_dequantize_f32(const int8_t* q, const float* s, const int32_t* idx,
   return (int)cudaGetLastError();
 }
 
-int quantize_pack_q4_f32(const float* x, uint8_t* p, float* s, int64_t R,
-                         int64_t C, void* stream) {
-  if (R <= 0 || C <= 0) return (int)cudaSuccess;
-  quantize_pack_q4_kernel<<<row_blocks(R), 32 * kRowsPerBlock, 0,
-                            (cudaStream_t)stream>>>(x, p, s, R, C);
+// ``n`` leaves (1..kQ4Cap) of kQ4Fields int64 each, as kernels/wire.py:
+// quantize_pack_q4_table lays them out: x, p, s addresses, R, C, lanes,
+// nv, vec (kernels/wire.py: q4_plan), first block; ``blocks`` blocks in
+// all.  Returns cudaErrorInvalidValue for another n.
+int quantize_pack_q4_table(const int64_t* fields, int n, int64_t blocks,
+                           void* stream) {
+  if (n < 1 || n > kQ4Cap || blocks < 1 || blocks >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  Q4Table t = {};
+  t.n = n;
+  for (int i = 0; i < n; ++i) {
+    const int64_t* g = fields + (int64_t)i * kQ4Fields;
+    Q4Leaf& f = t.leaf[i];
+    f.x = reinterpret_cast<const float*>(g[0]);
+    f.p = reinterpret_cast<uint8_t*>(g[1]);
+    f.s = reinterpret_cast<float*>(g[2]);
+    f.R = (uint32_t)g[3], f.C = (uint32_t)g[4], f.lanes = (uint32_t)g[5];
+    f.nv = (uint32_t)g[6], f.vec = (uint32_t)g[7], f.first = (uint32_t)g[8];
+  }
+  quantize_pack_q4_table_kernel<<<(unsigned)blocks, 256, 0,
+                                  (cudaStream_t)stream>>>(t);
   return (int)cudaGetLastError();
 }
 

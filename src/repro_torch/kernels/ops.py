@@ -113,15 +113,31 @@ def quantize_rows(x, levels: int = 127):
     return q.view(shape), s.view(_scale_shape(shape))
 
 
+def _q4_shapes(shape: tuple) -> tuple[tuple, tuple]:
+    """(packed, scale) shapes of the q4 encode of an any-rank leaf."""
+    R, C = _rc(shape)
+    return (shape[:-1] if shape else ()) + ((C + 1) // 2,), \
+        _scale_shape(shape)
+
+
 def quantize_pack_q4(x):
     """q4 encode of any-rank ``x``: per-row quantize to [-7, 7] + pack two
     channels per byte -> (packed uint8 shape[:-1] + (ceil(C/2),), scale
     f32).  Odd minor dims carry one zero pad nibble."""
-    shape = tuple(x.shape)
-    R, C = _rc(shape)
-    p, s = _wire.quantize_pack_q4(_view2d(x.to(torch.float32), R, C))
-    p_shape = (shape[:-1] if shape else ()) + ((C + 1) // 2,)
-    return p.view(p_shape), s.view(_scale_shape(shape))
+    return quantize_pack_q4_leaves([x])[0]
+
+
+def quantize_pack_q4_leaves(xs):
+    """:func:`quantize_pack_q4` of every leaf of ``xs`` in one launch of
+    the q4 kernel (``wire.quantize_pack_q4_table``) -> [(packed, scale)]."""
+    shapes = [tuple(x.shape) for x in xs]
+    views = [_view2d(x.to(torch.float32), *_rc(shape))
+             for x, shape in zip(xs, shapes)]
+    out = []
+    for (p, s), shape in zip(_wire.quantize_pack_q4_table(views), shapes):
+        p_shape, s_shape = _q4_shapes(shape)
+        out.append((p.view(p_shape), s.view(s_shape)))
+    return out
 
 
 def _arange_idx(n: int, device):
@@ -164,26 +180,39 @@ def _idx32(idx):
     return idx.to(torch.int32).contiguous()
 
 
-def gather_axis(x, idx, ax: int, lead: int = 0):
-    """Gather ``x`` along axis ``ax`` by ``idx`` (*stack, B): the stack
-    dims of ``idx`` are x's axes ``lead .. lead + len(stack) - 1``, all
-    before ``ax``, and each stack slice keeps its own index row.  One
-    launch of the gather kernel on the contiguous (R, C, Q) view around
-    the axis; no axis is moved."""
-    shape = tuple(x.shape)
+def gather_leaves(xs, idx, axes, lead: int = 0, group: int = 1):
+    """Gather each leaf ``xs[i]`` along its axis ``axes[i]`` by the kept
+    groups ``idx`` (*stack, B) of ``group`` channels each, in [0, C/group]
+    where the index C/group writes zeros: the stack dims of ``idx`` are
+    each leaf's axes ``lead .. lead + len(stack) - 1``, all before its
+    axis, and each stack slice keeps its own index row.  Every leaf is a
+    contiguous (R, C, Q) view around its axis (no axis is moved), and all
+    of them go to the gather kernel in one launch (``compact.gather_table``;
+    one more for every CAPACITY leaves).  The leaves must be distinct
+    tensors.  Returns the gathered leaves, B * group wide on their axes."""
     sn = idx.ndim - 1
-    if ax < lead + sn or shape[lead:lead + sn] != tuple(idx.shape[:-1]):
-        raise ValueError(
-            f"gather_axis: index of shape {tuple(idx.shape)} does not stack "
-            f"over axes {lead}..{lead + sn - 1} before axis {ax} of "
-            f"{shape}")
     B = idx.shape[-1]
-    R = math.prod(shape[:ax])
-    out = _compact.gather_groups(
-        x.contiguous().view(R, shape[ax], math.prod(shape[ax + 1:])),
-        _idx32(idx).reshape(-1, B),
-        slice_rows=math.prod(shape[lead + sn:ax]))
-    return out.view(shape[:ax] + (B,) + shape[ax + 1:])
+    i32 = _idx32(idx).reshape(-1, B)
+    jobs, shapes = [], []
+    for x, ax in zip(xs, axes):
+        shape = tuple(x.shape)
+        if ax < lead + sn or shape[lead:lead + sn] != tuple(idx.shape[:-1]):
+            raise ValueError(
+                f"gather_leaves: index of shape {tuple(idx.shape)} does not "
+                f"stack over axes {lead}..{lead + sn - 1} before axis {ax} "
+                f"of {shape}")
+        jobs.append((x.contiguous().view(math.prod(shape[:ax]), shape[ax],
+                                         math.prod(shape[ax + 1:])),
+                     i32, math.prod(shape[lead + sn:ax]), group))
+        shapes.append(shape[:ax] + (B * group,) + shape[ax + 1:])
+    outs = _compact.gather_table(jobs)
+    return [o.view(shape) for o, shape in zip(outs, shapes)]
+
+
+def gather_axis(x, idx, ax: int, lead: int = 0):
+    """Gather ``x`` along axis ``ax`` by ``idx`` (*stack, B) in [0, C], C
+    writing zeros: :func:`gather_leaves` of one leaf in channel units."""
+    return gather_leaves([x], idx, [ax], lead)[0]
 
 
 def gather_rows(x, idx):
@@ -199,11 +228,9 @@ def compact_groups(x, idx):
 
 def expand_groups(c, idx, full: int):
     """Zero-fill recovery (paper §4.4.3): (..., B, K) -> (..., full, K), a
-    gather by the inverse index from the buffer padded by one zero
-    group."""
-    ax = c.ndim - 2
-    cp = torch.nn.functional.pad(c, (0, 0, 0, 1))
-    return gather_axis(cp, _ref.inverse_index(idx, full), ax)
+    gather of the compact buffer itself by the inverse index, whose
+    dropped positions (B) write zeros."""
+    return gather_axis(c, _ref.inverse_index(idx, full), c.ndim - 2)
 
 
 def dequantize_rows(q, scale):

@@ -36,19 +36,23 @@ def quantize_rows_ref(x, levels=127):
     return q, s
 
 
-def gather_groups_ref(x, idx, slice_rows: int = 1):
-    """x: (R, C) or (R, C, Q), idx: (B,) or (S, B) -> (R, B) or (R, B, Q),
-    ``out[r, j, q] = x[r, idx[s, j], q]`` with ``s = (r // slice_rows) %
-    S``: the §4.4 packing gather (compaction along the group axis; the
-    zero-fill expansion is the same gather with an inverse index into a
-    zero-padded buffer, :func:`expand_operands`)."""
+def gather_groups_ref(x, idx, slice_rows: int = 1, group: int = 1):
+    """x: (R, C) or (R, C, Q), idx: (B,) or (S, B) kept groups of
+    ``group`` channels in [0, C/group] -> (R, B*group) or (R, B*group,
+    Q), ``out[r, j*g + k, q] = x[r, idx[s, j]*g + k, q]`` with ``s = (r //
+    slice_rows) % S`` and zeros where the index is C/g: the §4.4 packing
+    gather (compaction along the group axis) and, with the inverse index
+    of a compaction (:func:`inverse_index`) applied to the compact buffer,
+    the zero-fill expansion.  It reads x padded by one zero group."""
     x3 = x if x.ndim == 3 else x[..., None]
     R, C, Q = x3.shape
+    g = group
     idx2 = idx.reshape(-1, idx.shape[-1]).long()
     S, B = idx2.shape
-    x5 = x3.reshape(R // (S * slice_rows), S, slice_rows, C, Q)
+    xg = F.pad(x3.reshape(R, C // g, g * Q), (0, 0, 0, 1))
+    x5 = xg.reshape(R // (S * slice_rows), S, slice_rows, C // g + 1, g * Q)
     out = torch.take_along_dim(x5, idx2.reshape(1, S, 1, B, 1), dim=3)
-    out = out.reshape(R, B, Q)
+    out = out.reshape(R, B * g, Q)
     return out if x.ndim == 3 else out[..., 0]
 
 

@@ -6,8 +6,9 @@
     (``Q8Codec.encode_compact``);
   * :func:`gather_dequantize` — gather + dequantize (``Q8Codec.decode``,
     and with an inverse index into a zero-padded q ``decode_expand``);
-  * :func:`quantize_pack_q4` — per-row q4 quantize + nibble pack (the q4
-    ring and ``Q4Codec.encode``);
+  * :func:`quantize_pack_q4_table` — per-row q4 quantize + nibble pack of
+    many leaves in one launch (the q4 ring); :func:`quantize_pack_q4` is a
+    table of one (``Q4Codec.encode``);
   * :func:`gather_quantize_q4` — kept-column gather fused with it
     (``Q4Codec.encode_compact``);
   * :func:`unpack_gather_dequantize_q4` — nibble unpack + gather in the
@@ -16,15 +17,19 @@
 Scale granularity is one f32 scale per ROW of the (R, C) view — a
 function of the leaf shape, so ``wire_bytes`` stays analytic.
 :func:`quantize_plan` chooses ``quantize_rows``'s launch from the row
-width and the base address (a plain function, so the CPU tests check it).  A tensor
-on the CPU takes the plain version (``kernels/ref.py``); a CUDA tensor
-launches the kernel or raises.  ``launches`` counts launches.  The q8
-gather kernels take int32 indices, as the TPU kernels do; the q4 ones
-int64.
+width and the base address, :func:`q4_plan` each leaf's of
+``quantize_pack_q4``, which encodes many leaves in one launch
+(:func:`quantize_pack_q4_table`); both are plain functions, so the CPU
+tests check them.  A tensor on the CPU takes the plain version
+(``kernels/ref.py``); a CUDA tensor launches the kernel or raises.
+``launches`` counts launches.  The q8 gather kernels take int32
+indices, as the TPU kernels do; the q4 ones int64.
 """
 from __future__ import annotations
 
+import array
 import ctypes
+import functools
 
 import torch
 
@@ -45,7 +50,7 @@ def _lib():
                  [_P, _P, _P, _I64, _I64] + [_INT] * 4 + [_P]),
                 ("gather_quantize_f32", [_P] * 4 + [_I64] * 3 + [_INT, _P]),
                 ("gather_dequantize_f32", [_P] * 4 + [_I64] * 3 + [_P]),
-                ("quantize_pack_q4_f32", [_P, _P, _P, _I64, _I64, _P]),
+                ("quantize_pack_q4_table", [_P, _INT, _I64, _P]),
                 ("gather_quantize_q4_f32", [_P] * 4 + [_I64] * 3 + [_P]),
                 ("unpack_gather_dequantize_q4_f32",
                  [_P] * 4 + [_I64] * 3 + [_P])):
@@ -88,23 +93,55 @@ QUANT_NV = (1, 2, 3, 4, 6)   # vectors a lane holds: the kernel's set
 QUANT_SMALL = 132 * 2048
 
 
-def quantize_plan(R: int, C: int, ptr: int) -> tuple[int, int, int]:
-    """(lanes, nv, vec) of ``quantize_rows`` on ``R`` rows of ``C`` floats
-    from address ``ptr``: 16-byte vectors (vec 4) where C % 4 == 0 and the
-    base is 16-byte aligned, else single floats; the fewest lanes a row (a
-    power of two up to 256) that leave each at most one vector (a view
-    under QUANT_SMALL vectors) or QUANT_NV[-1] (a larger one), and the
-    least count of QUANT_NV that covers a lane's share (nv); rows that
-    need more than QUANT_NV[-1] vectors a lane at 256 lanes stream (lanes
-    32, nv 0)."""
-    vec = 4 if C % 4 == 0 and ptr % 16 == 0 else 1
-    nvec = C // vec
+def _lanes(R: int, nvec: int) -> tuple[int, int]:
+    """(lanes, nv) for ``R`` rows of ``nvec`` vectors: the fewest lanes a
+    row (a power of two up to 256) that leave each at most one vector (a
+    view under QUANT_SMALL vectors) or QUANT_NV[-1] (a larger one), and
+    the least count of QUANT_NV that covers a lane's share; rows that need
+    more than QUANT_NV[-1] vectors a lane at 256 lanes stream (32, 0)."""
     per_max = 1 if R * nvec < QUANT_SMALL else QUANT_NV[-1]
     lanes = min(256, 1 << (max(-(-nvec // per_max), 1) - 1).bit_length())
     per = -(-nvec // lanes)
     if per > QUANT_NV[-1]:
-        return 32, 0, vec
-    return lanes, min(n for n in QUANT_NV if n >= per), vec
+        return 32, 0
+    return lanes, min(n for n in QUANT_NV if n >= per)
+
+
+def quantize_plan(R: int, C: int, ptr: int) -> tuple[int, int, int]:
+    """(lanes, nv, vec) of ``quantize_rows`` on ``R`` rows of ``C`` floats
+    from address ``ptr``: 16-byte vectors (vec 4) where C % 4 == 0 and the
+    base is 16-byte aligned, else single floats; lanes and vectors a lane
+    as :func:`_lanes` chooses them (nv 0 streams, with lanes 32)."""
+    vec = 4 if C % 4 == 0 and ptr % 16 == 0 else 1
+    return _lanes(R, C // vec) + (vec,)
+
+
+Q4_CAPACITY = 64   # leaves a launch of the q4 table kernel (csrc kQ4Cap)
+
+
+def q4_plan(R: int, C: int, xptr: int, pptr: int) -> tuple[int, int, int]:
+    """(lanes, nv, vec) of one leaf of ``quantize_pack_q4``: vectors of
+    four floats (16-byte loads, two packed bytes stored) where C % 4 == 0,
+    x is 16-byte and p 2-byte aligned, else pairs of columns (one packed
+    byte; an odd C's last pair holds one column); lanes and vectors a
+    lane as quantize_rows takes them (:func:`_lanes`)."""
+    vec = 4 if C % 4 == 0 and xptr % 16 == 0 and pptr % 2 == 0 else 2
+    return _lanes(R, -(-C // vec)) + (vec,)
+
+
+def q4_blocks(R: int, lanes: int, nv: int) -> int:
+    """Blocks of 256 threads one leaf takes: 256 / lanes rows a block, or
+    eight (one warp a row) where it streams."""
+    return -(-R // 8) if nv == 0 else -(-R * lanes // 256)
+
+
+@functools.lru_cache(maxsize=4096)
+def _q4_leaf(R: int, C: int, xmis: int, pmis: int) -> tuple[int, ...]:
+    """(lanes, nv, vec, blocks) of one leaf, cached: a round encodes the
+    same shapes every time (``xmis``, ``pmis``: the addresses modulo
+    16)."""
+    plan = q4_plan(R, C, xmis, pmis)
+    return plan + (q4_blocks(R, *plan[:2]),)
 
 
 def quantize_rows(x, *, levels: int = 127):
@@ -167,20 +204,56 @@ def gather_dequantize(q, s, idx):
     return out
 
 
+def quantize_pack_q4_table(xs):
+    """xs: [(R, C) float32] -> [(packed uint8 (R, ceil(C/2)), scale f32
+    (R, 1))], every leaf in one launch (one more for every Q4_CAPACITY
+    leaves).  The packed bytes and the scales of all leaves lie in one
+    flat buffer each (every leaf's bytes 16-byte aligned), viewed per
+    leaf; an odd C carries one zero pad nibble."""
+    xs = list(xs)
+    if not xs:
+        return []
+    if _on_cpu("quantize_pack_q4", xs[0]):
+        return [ref.quantize_pack_q4_ref(x) for x in xs]
+    dev = xs[0].device
+    offs, p_end, s_end = [], 0, 0
+    for x in xs:
+        _check("quantize_pack_q4", x, torch.float32, dev, 2)
+        R, C = x.shape
+        offs.append((p_end, s_end))
+        p_end += -(-R * ((C + 1) // 2) // 16) * 16
+        s_end += R
+    p_all = torch.empty(p_end, dtype=torch.uint8, device=dev)
+    s_all = torch.empty(s_end, dtype=torch.float32, device=dev)
+    outs, rows = [], []
+    for x, (po, so) in zip(xs, offs):
+        R, C = x.shape
+        p = p_all[po:po + R * ((C + 1) // 2)].view(R, (C + 1) // 2)
+        s = s_all[so:so + R].view(R, 1)
+        outs.append((p, s))
+        if R and C:
+            *plan, blocks = _q4_leaf(R, C, x.data_ptr() % 16,
+                                     p.data_ptr() % 16)
+            rows.append(([x.data_ptr(), p.data_ptr(), s.data_ptr(), R, C]
+                         + plan, blocks))
+    lib, stream = _lib(), _stream(xs[0])
+    for k in range(0, len(rows), Q4_CAPACITY):
+        fields, first = [], 0
+        for head, blocks in rows[k:k + Q4_CAPACITY]:
+            fields += head + [first]
+            first += blocks
+        arr = array.array("q", fields)   # 5x faster to build than ctypes'
+        err = lib.quantize_pack_q4_table(arr.buffer_info()[0],
+                                         len(fields) // 9, first, stream)
+        _build.check(err, "quantize_pack_q4")
+        launches["quantize_pack_q4"] += 1
+    return outs
+
+
 def quantize_pack_q4(x):
     """x: (R, C) float32 -> (packed uint8 (R, ceil(C/2)), scale f32
-    (R, 1)); an odd C carries one zero pad nibble."""
-    if _on_cpu("quantize_pack_q4", x):
-        return ref.quantize_pack_q4_ref(x)
-    _check("quantize_pack_q4", x, torch.float32, x.device, 2)
-    R, C = x.shape
-    p = torch.empty((R, (C + 1) // 2), dtype=torch.uint8, device=x.device)
-    s = torch.empty((R, 1), dtype=torch.float32, device=x.device)
-    err = _lib().quantize_pack_q4_f32(x.data_ptr(), p.data_ptr(),
-                                      s.data_ptr(), R, C, _stream(x))
-    _build.check(err, "quantize_pack_q4")
-    launches["quantize_pack_q4"] += 1
-    return p, s
+    (R, 1)); an odd C carries one zero pad nibble.  A table of one."""
+    return quantize_pack_q4_table([x])[0]
 
 
 def gather_quantize_q4(x, idx):

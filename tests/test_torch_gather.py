@@ -163,3 +163,161 @@ def test_encode_compact_decode_expand_equal_reference(spec):
                           for p in (tpay, jpay))):
             _same(t, j)
         _same(tout, jout)
+
+
+# ---------------------------------------------------------------------------
+# one launch a rule: the per-rule entry against the per-leaf plain gathers
+# and the JAX package's compaction
+# ---------------------------------------------------------------------------
+
+# (arch, rule) of every compactable rule of the smoke configs: whole
+# GroupNorm groups (g = 8) of resnet18, ssm_heads (g = 1, a stacked rule:
+# S > 1) of mamba2-780m, and resnet152's bottleneck rules, which slice one
+# leaf twice (conv2 on its input and output axes)
+RULES = [("resnet18", "cnn:stem"), ("resnet18", "cnn:mid0"),
+         ("resnet18", "cnn:mid1"), ("resnet18", "cnn:out1"),
+         ("mamba2-780m", "ssm_heads"), ("resnet152", "cnn:mid0"),
+         ("resnet152", "cnn:out0"), ("resnet152", "cnn:mid1")]
+
+
+def _nested(flat):
+    out = {}
+    for k, v in flat.items():
+        node = out
+        parts = k.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = jnp.asarray(v)
+    return out
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def _rule_case(rule, shapes, seed):
+    """A (2, *shape) payload of every leaf of ``rule`` and a random kept
+    set of its mask shape (block units), as numpy."""
+    from repro.core import sparsity as jsp
+    rng = np.random.default_rng(seed)
+    keys = {la.key for la in rule.all_leaves}
+    p = {k: _x((2,) + tuple(shapes[k]), seed) for k in keys}
+    stack = tuple(shapes[rule.leaves[0].key][:rule.stack_ndims])
+    sc = rng.random(stack + (rule.groups,)).astype(np.float32)
+    _, idx = jsp.topk_mask(jnp.asarray(sc), rule.keep, rule.shards)
+    return p, np.array(idx)
+
+
+def _per_leaf(params, rule, chan_idx, offset, inverse_full=None):
+    """The rule's leaves gathered one by one by the plain version in
+    channel units (``chan_idx``: (*stack, B) global channel indices), or
+    expanded through the inverse index into a buffer padded by one zero
+    channel (``inverse_full``: channels of the full axis)."""
+    from repro_torch.kernels import ref
+    params = dict(params)
+    leaves = rule.all_leaves if inverse_full is None \
+        else tuple(reversed(rule.all_leaves))
+    for la in leaves:
+        x, ax = params[la.key], la.axes[0] + offset
+        idx = chan_idx
+        if inverse_full is not None:
+            x = torch.nn.functional.pad(
+                x, [0, 0] * (x.ndim - 1 - ax) + [0, 1])
+            idx = ref.inverse_index(chan_idx, inverse_full)
+        shape = tuple(x.shape)
+        sn = rule.stack_ndims
+        v = x.reshape(int(np.prod(shape[:ax])), shape[ax],
+                      int(np.prod(shape[ax + 1:])))
+        out = ref.gather_groups_ref(
+            v, idx.reshape(-1, idx.shape[-1]),
+            int(np.prod(shape[offset + sn:ax])))
+        params[la.key] = out.reshape(shape[:ax] + (idx.shape[-1],)
+                                     + shape[ax + 1:])
+    return params
+
+
+@pytest.mark.parametrize("arch,name", RULES)
+def test_rule_gather_equals_per_leaf_plain_and_reference(arch, name):
+    """compact_params/expand_params of one rule (one launch of the
+    gather kernel on the card, in runs of whole groups, the expansion
+    reading the dropped index as zeros) equal the per-leaf plain gathers
+    in channel units and the JAX package's compaction, bit for bit."""
+    from repro.core import shrinkage as jsh
+    from repro_torch.configs import get_config
+    from repro_torch.core import shrinkage as tsh
+    from repro_torch.core.sparsity import SparsityPlan, channel_idx
+    from repro_torch.models import build
+    b = build(get_config(arch, smoke=True))
+    rule = b.plan.rule(name)
+    assert rule.compactable
+    p, idx = _rule_case(rule, b.shapes, 3)
+    plan = SparsityPlan((rule,))
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    ti = {name: torch.from_numpy(idx).long()}
+    tc = tsh.compact_params(tp, plan, ti, offset=1)
+    te = tsh.expand_params(tc, plan, ti, {name: rule.groups}, offset=1)
+    chan = channel_idx(rule, ti[name])
+    pc = _per_leaf(tp, rule, chan, 1)
+    pe = _per_leaf(pc, rule, chan, 1, rule.groups * rule.group_size)
+    ji = {name: jnp.asarray(idx)}
+    jc = jsh.compact_params(_nested(p), plan, ji, offset=1)
+    je = _flat(jsh.expand_params(jc, plan, ji, {name: rule.groups},
+                                 offset=1))
+    jc = _flat(jc)
+    for k in p:
+        np.testing.assert_array_equal(to_np(tc[k]), to_np(pc[k]), err_msg=k)
+        np.testing.assert_array_equal(to_np(tc[k]), jc[k], err_msg=k)
+        np.testing.assert_array_equal(to_np(te[k]), to_np(pe[k]), err_msg=k)
+        np.testing.assert_array_equal(to_np(te[k]), je[k], err_msg=k)
+
+
+@pytest.mark.parametrize("shards,stack", [(2, 0), (2, 1), (4, 1)])
+def test_balanced_rule_gather_equals_reference(shards, stack):
+    """A balanced rule (shards > 1, block-local kept indices) over three
+    leaves on different axes, one of them a follower: one launch each
+    way, equal to the JAX package's compaction."""
+    from repro.core import shrinkage as jsh
+    from repro_torch.core import shrinkage as tsh
+    from repro_torch.core.sparsity import GroupRule, LeafAxis, SparsityPlan
+    L, C = 3, 16
+    pre = (L,) if stack else ()
+    shapes = {"a": pre + (5, C), "b": pre + (C, 4), "c": pre + (C,)}
+    rule = GroupRule("bal", (LeafAxis("a", stack + 1), LeafAxis("b", stack)),
+                     groups=C, keep=8, stack_ndims=stack, shards=shards,
+                     followers=(LeafAxis("c", stack),))
+    p, idx = _rule_case(rule, shapes, 5)
+    plan = SparsityPlan((rule,))
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    ti = {"bal": torch.from_numpy(idx).long()}
+    ji = {"bal": jnp.asarray(idx)}
+    tc = tsh.compact_params(tp, plan, ti, offset=1)
+    te = tsh.expand_params(tc, plan, ti, {"bal": C}, offset=1)
+    jc = jsh.compact_params(_nested(p), plan, ji, offset=1)
+    je = _flat(jsh.expand_params(jc, plan, ji, {"bal": C}, offset=1))
+    jc = _flat(jc)
+    for k in p:
+        np.testing.assert_array_equal(to_np(tc[k]), jc[k], err_msg=k)
+        np.testing.assert_array_equal(to_np(te[k]), je[k], err_msg=k)
+
+
+@pytest.mark.parametrize("g,Q", [(1, 1), (8, 1), (8, 5), (2, 3)])
+def test_gather_leaves_zero_index_equals_padded_gather(g, Q):
+    """The index C/g writes zeros: gather_leaves of a buffer by an index
+    holding C/g equals the gather from the buffer padded by one zero
+    group, for every dtype the kernel moves."""
+    C, Bg = 4 * g, 3
+    idx = torch.tensor([[4, 1, 4], [0, 4, 2]], dtype=torch.int32)
+    for dtype in sorted(DTYPES):
+        jx, tx = _pair(_x((2, 3, C, Q), 9), dtype)
+        out, = ops.gather_leaves([tx], idx, [2], 0, g)
+        pad = torch.cat([tx, torch.zeros((2, 3, g, Q), dtype=tx.dtype)], 2)
+        want = ops.gather_leaves([pad], idx, [2], 0, g)[0]
+        assert out.shape == (2, 3, Bg * g, Q) and torch.equal(out, want)
+        kept = out.reshape(2, 3, Bg, g, Q)
+        assert torch.all(kept[0, :, 0] == 0) and torch.all(kept[1, :, 1] == 0)

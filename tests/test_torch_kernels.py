@@ -12,7 +12,7 @@ import numpy as np  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 
-from repro_torch.kernels import ops, wire  # noqa: E402
+from repro_torch.kernels import compact, ops, wire  # noqa: E402
 
 from torch_port_helpers import to_np  # noqa: E402
 
@@ -148,6 +148,8 @@ def test_launch_counts_do_not_move_on_the_cpu():
     ops.unpack_dequantize_q4(*ops.quantize_pack_q4(x), 8)
     ops.scatter_dequantize_q4(*ops.gather_quantize_q4(x, idx), idx, 8)
     ops.expand_groups(ops.compact_groups(x[None], idx), idx, 8)
+    ops.gather_leaves([x, 2 * x], idx.reshape(4, 1).expand(4, 2), [1, 1], 0, 2)
+    ops.quantize_pack_q4_leaves([x, x[0], x.t()])
     ops.scatter_dequantize(*ops.gather_quantize(x, idx), idx, 8)
     ops.dequantize_rows(*ops.quantize_rows(x))
     ops.group_norms_sq(x.reshape(2, 2, 8))
@@ -372,3 +374,151 @@ def test_quantize_plan_covers_rows(C, R, ptr):
             assert lanes == 256
     else:
         assert lanes == 32 and nvec > 256 * wire.QUANT_NV[-1]
+
+
+# ---------------------------------------------------------------------------
+# the gather kernel's table of leaves (kernels/compact.py: plan, tables,
+# walk), checked at the full-width models' payload shapes without a tensor
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("lo,hi", [(1, 4097), (65530, 65541),
+                                   ((1 << 20) - 3, (1 << 20) + 3),
+                                   ((1 << 31) - 5, 1 << 31)])
+def test_fastdiv_divides_like_integer_division(lo, hi):
+    """The kernel's division by a constant, (umulhi(n, m) + n) >> s, is
+    n // d for every divisor and for n at 0, around multiples of d and at
+    the top of its range (n < 2^31)."""
+    rng = np.random.default_rng(lo)
+    for d in range(lo, hi):
+        ms = compact.fastdiv(d)
+        assert 0 < ms[0] < 1 << 32
+        n = np.concatenate([[0, 1, d - 1, d, d + 1, 2 * d - 1, 2 * d,
+                             (1 << 31) - 1, (1 << 31) - d],
+                            rng.integers(0, 1 << 31, 16)])
+        n = n[(n >= 0) & (n < 1 << 31)]
+        np.testing.assert_array_equal(compact.fdiv(n, ms), n // d)
+
+
+def _payload_gathers(arch, lead, monkeypatch):
+    """[(R, C, Q, S, B, P, g)] of every leaf the gather kernel takes in one
+    dynamic round of the arch's main path (chip_smoke.py phases 3 and 6a:
+    the compaction of a (lead, ...) payload by every rule, then its
+    expansion), recorded from ``compact.gather_table`` on meta tensors:
+    shapes only.  Returns (launches as lists of those tuples)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import shrinkage
+    from repro_torch.models import build
+    cfg = get_config(arch)
+    if arch == "mamba2-780m":
+        cfg = cfg.replace(n_layers=4, param_dtype="float32")
+    b = build(cfg)
+    meta = torch.device("meta")
+    calls = []
+
+    def record(jobs):
+        jobs = list(jobs)
+        calls.append([(x.shape[0], x.shape[1],
+                       x.shape[2] if x.ndim == 3 else 1,
+                       i.shape[0] if i.ndim == 2 else 1, i.shape[-1] * g,
+                       p, g) for x, i, p, g in jobs])
+        return [torch.empty((x.shape[0], i.shape[-1] * g) + x.shape[2:],
+                            device=meta) for x, i, p, g in jobs]
+
+    monkeypatch.setattr(compact, "gather_table", record)
+    p = {k: torch.empty((lead,) + tuple(s), device=meta)
+         for k, s in b.shapes.items()}
+    idxs = {}
+    for r in b.plan.rules:
+        stack = tuple(b.shapes[r.leaves[0].key][:r.stack_ndims])
+        idxs[r.name] = torch.zeros(stack + (r.keep,), dtype=torch.int64,
+                                   device=meta)
+    c = shrinkage.compact_params(p, b.plan, idxs, offset=1)
+    shrinkage.expand_params(c, b.plan, idxs,
+                            {r.name: r.groups for r in b.plan.rules},
+                            offset=1)
+    return calls
+
+
+FULL_WALK = 1 << 21   # leaves of at most this many units are walked whole
+
+
+@pytest.mark.parametrize("arch,lead,rules", [("resnet18", 4, 8),
+                                             ("mamba2-780m", 2, 1)])
+@pytest.mark.parametrize("elem,ptrs", [(4, (0, 0)), (4, (4, 0)),
+                                       (2, (0, 2)), (1, (0, 0))])
+def test_gather_table_covers_payload_rules(arch, lead, rules, elem, ptrs,
+                                           monkeypatch):
+    """Every rule's compaction and expansion at the full-width payload
+    shapes is one launch (a table of at most CAPACITY leaves); in each,
+    the block -> (leaf, tile) search and the threads' walk write every
+    output unit of every leaf exactly once, each from the input unit the
+    gather names (zeros for the index C/g); the unit is the widest that
+    the run of g·Q·elem bytes and both bases allow (16 bytes at every
+    aligned f32 ResNet leaf: whole groups of 8 channels)."""
+    calls = _payload_gathers(arch, lead, monkeypatch)
+    assert len(calls) == 2 * rules
+    rng = np.random.default_rng(7)
+    for jobs in calls:
+        plans = [compact.plan(R, C, Q, S, B, P, g, elem, ptrs)
+                 for R, C, Q, S, B, P, g in jobs]
+        launches = compact.tables(plans)
+        assert len(launches) == 1 and len(launches[0]) == len(jobs)
+        firsts = [f for _, f in launches[0]]
+        total = firsts[-1] + plans[-1].tiles
+        owner = np.repeat(np.arange(len(plans)), [p.tiles for p in plans])
+        assert len(owner) == total      # each block one tile of one leaf
+        for blk in range(0, total, max(1, total // 4096)):
+            assert compact.leaf_of(blk, firsts) == owner[blk]
+        for blk in (*firsts, *(f - 1 for f in firsts[1:]), total - 1):
+            assert compact.leaf_of(blk, firsts) == owner[blk]
+        for p, (R, C, Q, S, B, P, g) in zip(plans, jobs):
+            run = g * Q * elem
+            assert run % p.unit == 0 and all(a % p.unit == 0 for a in ptrs)
+            assert p.unit == 16 or run % (2 * p.unit) \
+                or any(a % (2 * p.unit) for a in ptrs)
+            if arch == "resnet18" and elem == 4 and ptrs == (0, 0):
+                assert g == 8 and p.unit == 16
+            idx = rng.integers(0, p.Cg + 1, (p.S, p.Bg))
+            if elem == 4 and ptrs == (0, 0) and p.units <= FULL_WALK:
+                tiles = np.arange(p.tiles)      # every tile of the leaf
+            else:                               # its ends and a sample
+                tiles = np.unique(np.concatenate([
+                    [0, p.tiles - 1], rng.integers(0, p.tiles, 4)]))
+            u, src = compact.walk(p, tiles, idx)
+            want = tiles[:, None] * compact.TILE + np.arange(compact.TILE)
+            np.testing.assert_array_equal(u, want[want < p.units])
+            if len(tiles) == p.tiles:
+                assert len(u) == p.units    # each unit once, all of them
+            q, l = np.divmod(u, p.L)
+            r, j = np.divmod(q, p.Bg)
+            c = idx[(r // p.P) % p.S, j]
+            np.testing.assert_array_equal(
+                src, np.where(c < p.Cg, (r * p.Cg + c) * p.L + l, -1))
+
+
+def test_gather_tables_split_at_capacity():
+    """More leaves than a launch holds go to further launches, in order,
+    each numbering its blocks from 0; leaves without output are left
+    out."""
+    plans = [compact.plan(3 + i % 5, 16, 1 + i % 3, 1, 8, 1, 8 if i % 2
+                          else 1, 4, (0, 0)) for i in range(70)]
+    plans[5] = compact.plan(0, 16, 4, 1, 8, 1, 1, 4, (0, 0))
+    launches = compact.tables(plans)
+    assert [len(t) for t in launches] == [compact.CAPACITY] * 2 + [5]
+    assert [i for t in launches for i, _ in t] == \
+        [i for i in range(70) if i != 5]
+    for t in launches:
+        assert t[0][1] == 0
+        for (i, f), (_, nxt) in zip(t, t[1:]):
+            assert nxt == f + plans[i].tiles
+
+
+@pytest.mark.parametrize("run,ptrs,unit", [
+    (32, (0, 0), 16), (32, (4, 0), 4), (32, (0, 8), 8), (256, (0, 0), 16),
+    (4, (0, 0), 4), (12, (0, 0), 4), (6, (0, 0), 2), (3, (0, 0), 1),
+    (40, (0, 0), 8), (32, (2, 0), 2), (64, (1, 0), 1)])
+def test_gather_plan_unit_follows_alignment(run, ptrs, unit):
+    p = compact.plan(5, 7, run, 1, 3, 1, 1, 1, ptrs)
+    assert p.unit == unit and p.L == run // unit
+    assert p.units == 5 * 3 * p.L and p.tiles == -(-p.units // compact.TILE)

@@ -338,6 +338,151 @@ def test_gather_groups_layouts_equal_plain(shape, ax, lead, S, dev):
     assert torch.equal(out.cpu(), plain)
 
 
+# (g, Q, S, dtype, off): whole groups of 8 f32 channels (runs of 32·Q
+# bytes, 16-byte units), g = 1 (4-byte runs at Q = 1), Q > 1, S > 1,
+# bf16/int8/uint8 runs of 2, 3, 6 or 5 bytes, bases 1 to 4 elements off
+# 16-byte alignment
+TABLE_CASES = [
+    (8, 1, 1, torch.float32, 0), (8, 5, 1, torch.float32, 0),
+    (1, 1, 1, torch.float32, 0), (1, 64, 3, torch.float32, 0),
+    (8, 1, 3, torch.float32, 1), (2, 3, 1, torch.float32, 1),
+    (1, 1, 2, torch.bfloat16, 0), (3, 1, 1, torch.bfloat16, 1),
+    (1, 3, 2, torch.int8, 0), (8, 1, 1, torch.int8, 3),
+    (1, 5, 3, torch.uint8, 1), (4, 4, 2, torch.uint8, 0)]
+
+
+def _offset(x, off):
+    """A copy of ``x`` whose base lies ``off`` elements past an aligned
+    one."""
+    flat = torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)
+    y = flat[off:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.parametrize("g,Q,S,dtype,off", TABLE_CASES)
+def test_gather_table_paths_equal_plain(g, Q, S, dtype, off, dev):
+    """A compaction by kept groups of g channels and the zero-fill
+    expansion of its result by the inverse index (the index C/g read as
+    zeros, no padded copy), one launch each, bit-equal to the plain
+    version."""
+    P, Cg, Bg = 3, 6, 4
+    R = 2 * S * P
+    x = _offset((_randn((R, Cg * g, Q), g + Q, dev) * 40).to(dtype), off)
+    rng = np.random.default_rng(S + off)
+    kept = np.stack([np.sort(rng.choice(Cg, Bg, replace=False))
+                     for _ in range(S)]).astype(np.int32)
+    idx = torch.from_numpy(kept).to(dev)
+    inv = ref.inverse_index(idx, Cg)
+    ops.reset_launch_counts()
+    c, = compact.gather_table([(x, idx, P, g)])
+    e, = compact.gather_table([(_offset(c, off), inv, P, g)])
+    assert ops.launch_counts()["gather_groups"] == 2
+    torch.cuda.synchronize()
+    assert torch.equal(c, ref.gather_groups_ref(x, idx, P, g))
+    assert torch.equal(e, ref.gather_groups_ref(c, inv, P, g))
+    dropped = (inv == Bg).repeat_interleave(g, dim=1)    # (S, Cg * g)
+    rows = e.reshape(R // (S * P), S, P, Cg * g, Q)
+    assert torch.all(rows.permute(1, 3, 0, 2, 4)[dropped] == 0)
+
+
+def test_gather_table_over_capacity_equals_plain(dev):
+    """More leaves than one launch holds: the table splits into launches
+    of CAPACITY leaves, every leaf bit-equal to the plain version."""
+    jobs = []
+    for i in range(compact.CAPACITY + 9):
+        g, Q = (8, 1 + i % 4) if i % 2 else (1, 1 + i % 3)
+        x = _randn((3 + i % 5, 4 * g, Q), i, dev)
+        idx = torch.tensor([3, 0, 4][:1 + i % 3], dtype=torch.int32,
+                           device=dev)
+        jobs.append((x, idx, 1, g))
+    ops.reset_launch_counts()
+    outs = compact.gather_table(jobs)
+    assert ops.launch_counts()["gather_groups"] == 2
+    torch.cuda.synchronize()
+    for (x, idx, p, g), out in zip(jobs, outs):
+        assert torch.equal(out, ref.gather_groups_ref(x, idx, p, g))
+
+
+@pytest.mark.parametrize("arch,lead", [("resnet18", 4), ("mamba2-780m", 2)])
+def test_rule_gathers_equal_plain_at_full_width(arch, lead, dev,
+                                                monkeypatch):
+    """One dynamic round's compaction and expansion of a full-width
+    payload (mamba2-780m at 4 layers), one launch a rule each way, equal
+    to the plain version's on the same card, bit for bit."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.core import shrinkage
+    from repro_torch.models import build
+    cfg = get_config(arch)
+    if arch == "mamba2-780m":
+        cfg = cfg.replace(n_layers=4, param_dtype="float32")
+    b = build(cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    p = {k: torch.randn((lead,) + tuple(s), generator=gen, device=dev)
+         for k, s in b.shapes.items()}
+    idxs = {}
+    for r in b.plan.rules:
+        stack = tuple(b.shapes[r.leaves[0].key][:r.stack_ndims])
+        idxs[r.name] = torch.stack([torch.sort(torch.randperm(
+            r.groups, generator=gen, device=dev)[:r.keep]).values
+            for _ in range(math.prod(stack))]).reshape(stack + (r.keep,))
+    fulls = {r.name: r.groups for r in b.plan.rules}
+    ops.reset_launch_counts()
+    c = shrinkage.compact_params(p, b.plan, idxs, offset=1)
+    e = shrinkage.expand_params(c, b.plan, idxs, fulls, offset=1)
+    assert ops.launch_counts()["gather_groups"] == 2 * len(b.plan.rules)
+    monkeypatch.setattr(compact, "gather_table", lambda jobs: [
+        ref.gather_groups_ref(x, i, sr, g) for x, i, sr, g in jobs])
+    pc = shrinkage.compact_params(p, b.plan, idxs, offset=1)
+    pe = shrinkage.expand_params(pc, b.plan, idxs, fulls, offset=1)
+    torch.cuda.synchronize()
+    for k in p:
+        assert torch.equal(c[k], pc[k]) and torch.equal(e[k], pe[k]), k
+
+
+def test_quantize_pack_q4_table_equals_plain(dev):
+    """One launch encodes leaves of every kind: odd C, C = 1, pairs and
+    quads of columns, rows with NaN and inf, a base 4 bytes off
+    alignment, rows wide enough to stream; each bit-equal to the plain
+    version of that leaf alone."""
+    xs = [_randn(shape, i, dev, scale=10.0 ** (i % 5 - 2))
+          for i, shape in enumerate([(1, 1), (3, 7), (5, 33), (13, 10),
+                                     (16, 128), (7, 257), (4 * 2304, 32),
+                                     (2, 6145), (3, 12288), (97, 64)])]
+    bad = _randn((13, 10), 20, dev)
+    bad[1, 3], bad[5, 0], bad[12, 9] = float("nan"), float("inf"), \
+        -float("inf")
+    xs += [bad, _offset(_randn((9, 16), 21, dev), 1),
+           _offset(_randn((9, 33), 22, dev), 1)]
+    ops.reset_launch_counts()
+    outs = wire.quantize_pack_q4_table(xs)
+    assert ops.launch_counts()["quantize_pack_q4"] == 1
+    for x, (p, s) in zip(xs, outs):
+        _assert_q4_equal(p, s, *ref.quantize_pack_q4_ref(x))
+
+
+def test_quantize_pack_q4_table_resnet_payload_equals_plain(dev):
+    """ResNet-18's 62 compact payload leaves at 4 members, as the q4 ring
+    encodes them in phase 3b: one launch, each bit-equal to the plain
+    version."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.masks import MaskSyncConfig, budget
+    from repro_torch.core.shrinkage import plan_payload_shapes
+    from repro_torch.models import build
+    b = build(get_config("resnet18"))
+    budgets = {r.name: budget(r, MaskSyncConfig()) for r in b.plan.rules}
+    shapes = plan_payload_shapes(b.shapes, b.plan, budgets).values()
+    xs = [_randn((4,) + tuple(s), i, dev, 0.05) for i, s in enumerate(shapes)]
+    ops.reset_launch_counts()
+    outs = ops.quantize_pack_q4_leaves(xs)
+    assert ops.launch_counts()["quantize_pack_q4"] == 1 and len(outs) == 62
+    for x, (p, s) in zip(xs, outs):
+        R, C = ops._rc(tuple(x.shape))
+        _assert_q4_equal(p.reshape(R, -1), s.reshape(R, 1),
+                         *ref.quantize_pack_q4_ref(x.reshape(R, C)))
+
+
 @pytest.mark.parametrize("R,C,B", GATHER_CASES)
 def test_q8_gather_kernels_equal_plain(R, C, B, dev):
     x = _randn((R, C), 5, dev, 0.05)

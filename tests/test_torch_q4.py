@@ -17,7 +17,7 @@ from repro.configs import HsadmmConfig  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 
 from repro_torch import comm as tcomm  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, wire  # noqa: E402
 
 from torch_port_helpers import (ieee_gather_quantize_q4,  # noqa: E402
                                 ieee_quantize_pack_q4, jax_reference, to_np)
@@ -252,3 +252,67 @@ def test_unported_encode_pairs_refuse():
         assert c.decode(c.encode(x), like=x).shape == x.shape
         assert c.decode_expand(c.encode_compact(x, idx), idx, 8,
                                like=x).shape == x.shape
+
+
+# ---------------------------------------------------------------------------
+# one launch for many leaves: the q4 table and its per-leaf plan
+# ---------------------------------------------------------------------------
+
+
+def test_quantize_pack_q4_leaves_equals_eager_reference():
+    """Every leaf of one ``quantize_pack_q4_leaves`` call (one launch of
+    the q4 kernel on the card) equals the reference's encode of that
+    leaf alone, any rank, odd and even C."""
+    xs = [_x(shape, seed, 10.0 ** (seed % 5 - 2))
+          for seed, shape in enumerate(ANY_RANK)]
+    got = ops.quantize_pack_q4_leaves([torch.from_numpy(x) for x in xs])
+    assert len(got) == len(xs)
+    for x, (tp, ts) in zip(xs, got):
+        jp, js = ieee_quantize_pack_q4(jnp.asarray(x))
+        assert tp.dtype == torch.uint8 and tuple(tp.shape) == jp.shape
+        np.testing.assert_array_equal(to_np(tp), np.asarray(jp))
+        np.testing.assert_array_equal(to_np(ts), np.asarray(js))
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 7, 10, 32, 33, 64, 128, 256, 257,
+                               1536, 3072, 3073, 6144, 6145, 12288])
+@pytest.mark.parametrize("R", [1, 97, 32808])
+@pytest.mark.parametrize("xptr,pptr", [(0, 0), (4, 0), (0, 1), (8, 2)])
+def test_q4_plan_covers_rows(C, R, xptr, pptr):
+    """A leaf's q4 plan: vectors of four floats only where C % 4 == 0, x
+    is 16-byte and p 2-byte aligned (else pairs of columns); a power of
+    two of lanes; the registers cover the row, or the row streams (one
+    warp a row) past 6 vectors a lane at 256 lanes; the blocks cover
+    every row."""
+    lanes, nv, vec = wire.q4_plan(R, C, xptr, pptr)
+    assert vec == (4 if C % 4 == 0 and xptr % 16 == 0 and pptr % 2 == 0
+                   else 2)
+    nvec = -(-C // vec)
+    assert (lanes, nv) == wire._lanes(R, nvec)
+    assert lanes in (1, 2, 4, 8, 16, 32, 64, 128, 256)
+    blocks = wire.q4_blocks(R, lanes, nv)
+    if nv:
+        assert nv in wire.QUANT_NV and lanes * nv >= nvec
+        assert blocks * (256 // lanes) >= R > (blocks - 1) * (256 // lanes)
+    else:
+        assert lanes == 32 and nvec > 256 * wire.QUANT_NV[-1]
+        assert blocks * 8 >= R > (blocks - 1) * 8
+
+
+def test_q4_table_holds_the_resnet_payload_in_one_launch():
+    """ResNet-18's 62 compact payload leaves at 4 members (phase 3b's q4
+    ring) fit one table: one launch, every leaf's rows in registers (no
+    leaf streams), 16-byte loads where its width allows."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.masks import MaskSyncConfig, budget
+    from repro_torch.core.shrinkage import plan_payload_shapes
+    from repro_torch.models import build
+    b = build(get_config("resnet18"))
+    budgets = {r.name: budget(r, MaskSyncConfig()) for r in b.plan.rules}
+    shapes = plan_payload_shapes(b.shapes, b.plan, budgets).values()
+    views = [ops._rc((4,) + tuple(s)) for s in shapes]
+    assert len(views) == 62 <= wire.Q4_CAPACITY
+    assert sum(R * C for R, C in views) == 11_190_440
+    for R, C in views:
+        lanes, nv, vec = wire.q4_plan(R, C, 0, 0)
+        assert nv > 0 and vec == (4 if C % 4 == 0 else 2)
