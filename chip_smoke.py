@@ -6,7 +6,8 @@
     python3 chip_smoke.py --wire    # phase 1 and the quantize_rows,
                                     # quantize_pack_q4, gather_groups and
                                     # group_norms_sq checks at the ResNet
-                                    # and Mamba2 operands (no result line)
+                                    # and Mamba2 operands, the fused
+                                    # encodes' at ResNet's (no result line)
     python3 chip_smoke.py --rounds  # phase 1, then phases 3b and 3's
                                     # runs alone, timed (no result line)
 
@@ -26,16 +27,17 @@ Phases (any failure exits non-zero and prints no result line):
    launch a rule and direction, the expansions reading index C/g as
    zeros), prime R, B = 1, odd C and int8/uint8/bf16, groups of 8 with
    Q > 1 and S > 1, a base 4 bytes off, a table over one launch's
-   capacity, bit-equal; gather_quantize and
-   gather_dequantize: the codec API's compacted leaves, odd-C, one-row
-   and NaN/inf rows, bit-equal; group_norms_sq: one dynamic round's score
-   views, K = 1, K minor, C minor, a Mamba2-like view, fan-ins its slices
-   do not divide, an unaligned base and bf16, rtol 1e-5 and the same bits
-   twice), and time kernel, plain version, library call and bound (for
-   quantize_rows and quantize_pack_q4 also per row width beside the
-   plan, for gather_groups per run width and per launch, for
-   group_norms_sq per view beside its launch plan; the gather's library
-   call is take_along_dim on its (R/(S P), S, P, C/g, g Q) view);
+   capacity, bit-equal; gather_quantize(_q4) and their decodes: the
+   codec API's compacted leaves at kept sets of whole groups (the rules')
+   and of single columns, odd-C, one-row and NaN/inf rows, bit-equal;
+   group_norms_sq: one dynamic round's score views, K = 1, K minor, C
+   minor, a Mamba2-like view, fan-ins its slices do not divide, an
+   unaligned base and bf16, rtol 1e-5 and the same bits twice), and time
+   kernel, plain version, library call and bound (for quantize_rows and
+   quantize_pack_q4 also per row width beside the plan, for gather_groups
+   per run width and per launch, for group_norms_sq per view beside its
+   launch plan; the gather's library call is take_along_dim on its
+   (R/(S P), S, P, C/g, g Q) view);
 3. train full-width ResNet-18 with H-SADMM through the port's ``train``:
    16 workers stacked on the card, levels (4, 4), compact+q8 inter-node
    wire, 32 images per worker, 6 rounds of 8 local steps, masks frozen at
@@ -97,7 +99,13 @@ Phases (any failure exits non-zero and prints no result line):
 ``--wire`` runs phase 1, then phase 2's quantize_rows, quantize_pack_q4
 (ResNet only), gather_groups and group_norms_sq checks and times at the
 ResNet-18 operands and at Mamba2's (phase 6a's configuration, seeded
-synthetic data of the shapes phase 6d records).
+synthetic data of the shapes phase 6d records), and phase 2's checks and
+times of the codec API's fused encodes and decodes at ResNet's operands;
+then the encodes per class of leaf size beside their plans, their four
+large leaves at kept sets laid out in other ways (runs of 2 and 4 groups,
+the first B columns, all columns), and the q8 encode's two parts alone
+on those leaves (quantize_rows without the gather, gather_groups without
+the quantizer).
 
 It prints one fact per line, then the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line
@@ -412,22 +420,48 @@ def _equal_q4(torch, a, b, what) -> float:
     return max(_abs_err(torch, a[0], b[0]), _abs_err(torch, a[1], b[1]))
 
 
-def _compact_operands(torch, full_shapes, payload_shapes, lead, gen, dev):
-    """[(x (R, C), kept idx (B,) int64)]: every full-width leaf whose minor
-    axis is compacted, at ``lead`` members, with a random kept set of its
-    payload's width — the codec API's encode_compact operands."""
+def _compact_operands(torch, views, gen, dev):
+    """[(x (R, C), kept idx (B,) int64, column idx (B,) int64)] of the
+    codec API's encode_compact operands ``views``
+    (``shrinkage.compact_encode_views``).  The kept idx is what the
+    program passes: random whole groups of the compacting rule's group
+    size, sorted (as ``topk_mask`` keeps them), in channel units
+    (``channel_idx``); the column idx holds as many single random
+    columns, which no rule keeps (the kernels' scalar path)."""
+    from repro_torch.core.sparsity import channel_idx
     enc = []
-    for key, shape in full_shapes.items():
-        cshape = payload_shapes[key]
-        if not shape or shape[-1] == cshape[-1]:
-            continue
-        R, C = _q4_views(shape, lead)
-        B = cshape[-1]
+    for _, R, C, B, rule in views:
+        g = rule.group_size
         x = torch.randn((R, C), generator=gen, device=dev) * 0.05
-        idx = torch.sort(torch.randperm(C, generator=gen, device=dev)[:B]
-                         ).values
-        enc.append((x, idx))
+        kept = torch.sort(torch.randperm(C // g, generator=gen, device=dev)
+                          [:B // g]).values
+        cols = torch.sort(torch.randperm(C, generator=gen, device=dev)[:B]
+                          ).values
+        enc.append((x, channel_idx(rule, kept), cols))
     return enc
+
+
+def _encode_class(x, idx) -> str:
+    """A fused encode's leaf class by kept elements: large (at least 2^21:
+    ResNet's four leaves of 3.5 us of q8 bound or more), middle (2^16 to
+    2^21) or small (fewer: the launch alone sets the time)."""
+    n = x.shape[0] * idx.shape[0]
+    return "large" if n >= 1 << 21 else "middle" if n >= 1 << 16 \
+        else "small"
+
+
+def _q8_enc_bytes(x, idx) -> float:
+    """Bytes of the fused q8 encode of ``x[:, idx]``: the kept floats and
+    the int32 index read, q and the scales written."""
+    R, B = x.shape[0], idx.shape[0]
+    return 5.0 * R * B + 4.0 * B + 4.0 * R
+
+
+def _q4_enc_bytes(x, idx) -> float:
+    """Bytes of the fused q4 encode of ``x[:, idx]``: the kept floats and
+    the int64 index read, the packed bytes and the scales written."""
+    R, B = x.shape[0], idx.shape[0]
+    return 4.0 * R * B + 8.0 * B + R * ((B + 1) // 2) + 4.0 * R
 
 
 def _q4_bytes(xs) -> float:
@@ -435,6 +469,142 @@ def _q4_bytes(xs) -> float:
     byte and f32 scale written once."""
     return sum(4.0 * x.numel() + x.shape[0] * ((x.shape[1] + 1) // 2)
                + 4.0 * x.shape[0] for x in xs)
+
+
+def encode_study(torch, views, dev):
+    """``--wire``: the fused encodes over the codec API's compacted leaves
+    ``views`` by class of leaf (``encode_classes``); their large leaves at
+    kept sets laid out in other ways (``kept_layouts``); and the q8
+    encode's two parts alone on them (``encode_parts``)."""
+    from repro_torch.kernels import wire
+    gen = torch.Generator(device=dev).manual_seed(6)
+    ops3 = _compact_operands(torch, views, gen, dev)
+    enc = [(x, kept) for x, kept, _ in ops3]
+    encode_classes(torch, "gather_quantize",
+                   [(x, i.to(torch.int32)) for x, i in enc],
+                   wire.gather_quantize, wire.gather_quantize_plan,
+                   _q8_enc_bytes)
+    encode_classes(torch, "gather_quantize_q4", enc, wire.gather_quantize_q4,
+                   wire.gather_quantize_q4_plan, _q4_enc_bytes)
+    large = [(x, kept, rule.group_size)
+             for (*_, rule), (x, kept, _) in zip(views, ops3)
+             if _encode_class(x, kept) == "large"]
+    kept_layouts(torch, large, gen, dev)
+    encode_parts(torch, large)
+
+
+def encode_classes(torch, name, enc, encode, plan, nbytes):
+    """Time the fused encode ``name`` over the leaves ``enc`` [(x, idx)]
+    by class of leaf (``_encode_class``), one line each with the rows,
+    widths and launch plans (``plan``) of its leaves; ``nbytes(x, idx)``:
+    a leaf's bytes."""
+    classes = {}
+    for x, idx in enc:
+        classes.setdefault(_encode_class(x, idx), []).append((x, idx))
+    for cls in ("large", "middle", "small"):
+        jobs = classes.get(cls, [])
+        if not jobs:
+            continue
+        ms, stream = kernel_ms(lambda: [encode(x, i) for x, i in jobs], 20)
+        b_ms = bound(sum(nbytes(x, i) for x, i in jobs), 0.0)[0]
+        how = sorted({plan(x.shape[0], i.shape[0], x.shape[1], x.data_ptr())
+                      for x, i in jobs})
+        say(f"{name} {cls} leaves: {len(jobs)}, rows "
+            f"{sorted({x.shape[0] for x, _ in jobs})}, B "
+            f"{sorted({i.shape[0] for _, i in jobs})}, plan (lanes, nv, "
+            f"vec, runs) {how}: kernel {ms:.4f} ms on the device "
+            f"({stream:.4f} ms on the stream), bound {b_ms:.4f} ms "
+            f"({100 * b_ms / ms:.1f}% of it reached)")
+
+
+def kept_layouts(torch, large, gen, dev):
+    """Both fused encodes on the large leaves ``large`` [(x, kept, g)] at
+    kept sets of the same width B that differ only in where the kept
+    columns lie: the program's random whole groups of g; random runs of 2
+    and of 4 groups from multiples of their width (64 and 128 bytes of
+    f32 at g = 8); the first B columns; all B columns of the kept
+    columns' contiguous copy (``quantize_rows``'s operand in
+    ``encode_parts``); and all C columns (B = C, twice the work).  Each
+    is checked bit-equal to the plain versions, then timed against the
+    bytes it must move: one line a layout."""
+    from repro_torch.kernels import ref, wire
+
+    def runs(C, B, w):
+        k = torch.sort(torch.randperm(C // w, generator=gen, device=dev)
+                       [:B // w]).values
+        return (k[:, None] * w + torch.arange(w, device=dev)).reshape(-1)
+
+    layouts = {"random whole groups (the program's)":
+               [(x, i) for x, i, _ in large]}
+    for m in (2, 4):
+        if all(i.shape[0] % (m * g) == 0 == x.shape[1] % (m * g)
+               for x, i, g in large):
+            layouts[f"random runs of {m} groups"] = [
+                (x, runs(x.shape[1], i.shape[0], m * g)) for x, i, g in large]
+        else:
+            say(f"kept layout: runs of {m} groups do not divide B and C")
+    layouts["the first B columns"] = [
+        (x, torch.arange(i.shape[0], device=dev)) for x, i, _ in large]
+    layouts["all columns of their contiguous copy"] = [
+        (x[:, i].contiguous(), torch.arange(i.shape[0], device=dev))
+        for x, i, _ in large]
+    layouts["all C columns"] = [
+        (x, torch.arange(x.shape[1], device=dev)) for x, _, _ in large]
+    for what, jobs in layouts.items():
+        j8 = [(x, i.to(torch.int32)) for x, i in jobs]
+        for x, i in j8:
+            q, sc = wire.gather_quantize(x, i)
+            if not (_same(torch, q, ref.gather_quantize_ref(x, i)[0])
+                    and _same(torch, sc, ref.gather_quantize_ref(x, i)[1])):
+                raise AssertionError(f"gather_quantize, kept {what}: "
+                                     "differs from the plain version")
+        for x, i in jobs:
+            _equal_q4(torch, wire.gather_quantize_q4(x, i),
+                      ref.gather_quantize_q4_ref(x, i),
+                      f"gather_quantize_q4, kept {what}")
+        parts = []
+        for name, encode, nbytes, js in (
+                ("gather_quantize", wire.gather_quantize, _q8_enc_bytes, j8),
+                ("gather_quantize_q4", wire.gather_quantize_q4,
+                 _q4_enc_bytes, jobs)):
+            ms, _ = kernel_ms(lambda: [encode(x, i) for x, i in js], 20)
+            b_ms = bound(sum(nbytes(x, i) for x, i in js), 0.0)[0]
+            parts.append(f"{name} {ms:.4f} ms, bound {b_ms:.4f} "
+                         f"({100 * b_ms / ms:.1f}%)")
+        say(f"encodes' large leaves ({len(jobs)}), kept {what}, bit-equal: "
+            + "; ".join(parts))
+
+
+def encode_parts(torch, large):
+    """The fused q8 encode's two parts alone on its large leaves ``large``
+    [(x, kept, g)], one launch a leaf, each against its own bound: the
+    same row engine without the gather (``quantize_rows`` on the kept
+    columns stored contiguous) and the gather without the quantizer
+    (``gather_groups`` of the kept groups of g)."""
+    from repro_torch.kernels import compact, wire
+    dense = [x[:, i].contiguous() for x, i, _ in large]
+    q_ms, _ = kernel_ms(lambda: [wire.quantize_rows(d) for d in dense], 20)
+    q_b = bound(sum(5.0 * d.numel() + 4.0 * d.shape[0] for d in dense),
+                0.0)[0]
+    say(f"gather_quantize large leaves, parts alone: quantize_rows on the "
+        f"kept columns stored contiguous {q_ms:.4f} ms, bound {q_b:.4f} "
+        f"({100 * q_b / q_ms:.1f}%)")
+    groups = []
+    for x, i, g in large:
+        k = i.view(-1, g)
+        if not torch.equal(k, k[:, :1] + torch.arange(g, device=k.device)) \
+                or bool((k[:, 0] % g).any()):
+            say("gather_quantize large leaves: kept columns are not whole "
+                f"groups of {g}; gather_groups not timed")
+            return
+        groups.append((x, (k[:, 0] // g).to(torch.int32).contiguous(), g))
+    g_ms, _ = kernel_ms(lambda: [compact.gather_table([(x, k, 1, g)])
+                                 for x, k, g in groups], 20)
+    g_b = bound(sum(8.0 * d.numel() + 4.0 * k.numel()
+                    for d, (_, k, _) in zip(dense, groups)), 0.0)[0]
+    say(f"gather_quantize large leaves, parts alone: gather_groups of the "
+        f"kept groups {g_ms:.4f} ms, bound {g_b:.4f} "
+        f"({100 * g_b / g_ms:.1f}%)")
 
 
 def check_q4_pack(torch, payload_shapes, lead, dev, label="resnet18"):
@@ -502,18 +672,19 @@ def check_q4_pack(torch, payload_shapes, lead, dev, label="resnet18"):
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}]
 
 
-def check_q4(torch, full_shapes, payload_shapes, lead, dev):
+def check_q4(torch, views, dev):
     """The q4 gather and unpack kernels vs their plain versions, bit for
     bit, at the main paths' shapes, plus odd-C, 1-D and NaN/inf rows;
     timed (quantize_pack_q4: ``check_q4_pack``).
 
     gather_quantize_q4 / unpack_gather_dequantize_q4: the codec API's
-    encode_compact / decode_expand of every full-width leaf whose minor
-    axis is compacted, at a random kept set of the payload's width."""
+    encode_compact / decode_expand of ``views``
+    (``shrinkage.compact_encode_views``), at a random kept set of whole
+    groups (timed) and of single columns."""
     from repro_torch.kernels import ops, ref, wire
     gen = torch.Generator(device=dev).manual_seed(3)
-    enc = _compact_operands(torch, full_shapes, payload_shapes, lead, gen,
-                            dev)
+    ops3 = _compact_operands(torch, views, gen, dev)
+    enc = [(x, kept) for x, kept, _ in ops3]
     # each kernel's max abs difference from its plain version over every
     # comparison below (bytes as integers, scales, decoded values; the
     # entries that are not finite in both are held equal, not measured)
@@ -523,7 +694,7 @@ def check_q4(torch, full_shapes, payload_shapes, lead, dev):
         err[name] = max(err[name], e)
 
     dec = []
-    for x, idx in enc:
+    for k, (x, idx) in enumerate(enc + [(x, c) for x, _, c in ops3]):
         p, sc = wire.gather_quantize_q4(x, idx)
         note("gather_quantize_q4",
              _equal_q4(torch, (p, sc), ref.gather_quantize_q4_ref(x, idx),
@@ -543,7 +714,8 @@ def check_q4(torch, full_shapes, payload_shapes, lead, dev):
         if kept > 0.5001 * sc.max().item() or out.abs().sum().item() == 0:
             raise AssertionError(f"q4 round trip error {kept} on "
                                  f"{tuple(x.shape)}")
-        dec.append((pp, sc, inv))
+        if k < len(enc):
+            dec.append((pp, sc, inv))
     # odd C, 1-D leaves (one row), R not a multiple of the 8-row block,
     # and rows holding NaN or inf
     extra = [torch.randn(shp, generator=gen, device=dev)
@@ -567,8 +739,9 @@ def check_q4(torch, full_shapes, payload_shapes, lead, dev):
         note("unpack_gather_dequantize_q4", _abs_err(torch, out, plain))
     torch.cuda.synchronize()
     say(f"q4 check: gather_quantize_q4 and unpack_gather_dequantize_q4 on "
-        f"{len(enc)} compacted leaves, bit-equal to the plain versions; "
-        f"odd-C, 1-D, ragged-R and NaN/inf rows equal; max abs err {err}")
+        f"{len(enc)} compacted leaves, kept sets of whole groups and of "
+        "single columns, bit-equal to the plain versions; odd-C, 1-D, "
+        f"ragged-R and NaN/inf rows equal; max abs err {err}")
 
     def time_one(name, kern, plain, nbytes, nops, what):
         b_ms, b_by = bound(nbytes, nops)
@@ -586,17 +759,16 @@ def check_q4(torch, full_shapes, payload_shapes, lead, dev):
                 "library_ms": None}
 
     nb = sum(x.shape[0] * idx.shape[0] for x, idx in enc)
-    r8 = sum(x.shape[0] for x, _ in enc)
     p8 = sum(x.shape[0] * ((idx.shape[0] + 1) // 2) for x, idx in enc)
-    i8 = sum(idx.shape[0] for _, idx in enc)
+    r8 = sum(x.shape[0] for x, _ in enc)
     n9 = sum(pp.shape[0] * inv.shape[0] for pp, _, inv in dec)
     i9 = sum(inv.shape[0] for _, _, inv in dec)
     return [
         time_one("gather_quantize_q4",
                  lambda: [wire.gather_quantize_q4(x, i) for x, i in enc],
                  lambda: [ref.gather_quantize_q4_ref(x, i) for x, i in enc],
-                 4.0 * nb + 8.0 * i8 + p8 + 4.0 * r8, 7.0 * nb,
-                 f"{len(enc)} leaves, {nb} kept elements"),
+                 sum(_q4_enc_bytes(x, i) for x, i in enc), 7.0 * nb,
+                 f"{len(enc)} leaves, {nb} kept elements in whole groups"),
         time_one("unpack_gather_dequantize_q4",
                  lambda: [wire.unpack_gather_dequantize_q4(pp, sc, inv)
                           for pp, sc, inv in dec],
@@ -878,15 +1050,17 @@ def check_gather(torch, calls, dev, label="resnet18"):
              "library_ms": lib_ms}]
 
 
-def check_q8_gather(torch, full_shapes, payload_shapes, lead, dev):
+def check_q8_gather(torch, views, dev):
     """gather_quantize and gather_dequantize vs their plain versions, bit
     for bit, at the codec API's shapes (encode_compact / decode_expand of
-    every full-width leaf whose minor axis is compacted, and the plain
-    decode), plus odd-C, one-row, ragged-R and NaN/inf rows; timed."""
+    ``views``, ``shrinkage.compact_encode_views``, at kept sets of whole
+    groups and of single columns, and the plain decode), plus odd-C,
+    one-row, ragged-R and NaN/inf rows; timed at the whole groups."""
     from repro_torch.kernels import ops, ref, wire
     gen = torch.Generator(device=dev).manual_seed(6)
-    enc = [(x, idx.to(torch.int32)) for x, idx in _compact_operands(
-        torch, full_shapes, payload_shapes, lead, gen, dev)]
+    ops3 = [(x, kept.to(torch.int32), cols.to(torch.int32))
+            for x, kept, cols in _compact_operands(torch, views, gen, dev)]
+    enc = [(x, kept) for x, kept, _ in ops3]
     err = {"gather_quantize": 0.0, "gather_dequantize": 0.0}
 
     def note(name, a, b):
@@ -896,7 +1070,7 @@ def check_q8_gather(torch, full_shapes, payload_shapes, lead, dev):
         err[name] = max(err[name], _abs_err(torch, a, b))
 
     dec = []
-    for x, idx in enc:
+    for k, (x, idx) in enumerate(enc + [(x, c) for x, _, c in ops3]):
         q, sc = wire.gather_quantize(x, idx)
         qp, sp = ref.gather_quantize_ref(x, idx)
         note("gather_quantize", q, qp)
@@ -912,7 +1086,8 @@ def check_q8_gather(torch, full_shapes, payload_shapes, lead, dev):
         if kept > 0.5001 or out.abs().sum().item() == 0:
             raise AssertionError(f"q8 round trip {kept} quanta off on "
                                  f"{tuple(x.shape)}")
-        dec.append((pq, sc, inv))
+        if k < len(enc):
+            dec.append((pq, sc, inv))
     # the plain decode, odd C, one row, C = 1, ragged R, NaN/inf rows
     extra = [torch.randn(shp, generator=gen, device=dev)
              for shp in ((13, 33), (1, 9), (4, 1), (7, 257))]
@@ -933,7 +1108,8 @@ def check_q8_gather(torch, full_shapes, payload_shapes, lead, dev):
              ref.scatter_dequantize_ref(q, sc, idx, C))
     torch.cuda.synchronize()
     say(f"q8 gather check: gather_quantize and gather_dequantize on "
-        f"{len(enc)} compacted leaves bit-equal to the plain versions; the "
+        f"{len(enc)} compacted leaves, kept sets of whole groups and of "
+        "single columns, bit-equal to the plain versions; the "
         "plain dequantize, odd-C, one-row, C = 1, ragged-R and NaN/inf rows "
         f"equal; max abs err {err}")
 
@@ -953,15 +1129,14 @@ def check_q8_gather(torch, full_shapes, payload_shapes, lead, dev):
 
     nb = sum(x.shape[0] * idx.shape[0] for x, idx in enc)
     rows = sum(x.shape[0] for x, _ in enc)
-    ib = sum(idx.shape[0] for _, idx in enc)
     n9 = sum(pq.shape[0] * inv.shape[0] for pq, _, inv in dec)
     i9 = sum(inv.shape[0] for _, _, inv in dec)
     return [
         time_one("gather_quantize",
                  lambda: [wire.gather_quantize(x, i) for x, i in enc],
                  lambda: [ref.gather_quantize_ref(x, i) for x, i in enc],
-                 5.0 * nb + 4.0 * ib + 4.0 * rows, 7.0 * nb,
-                 f"{len(enc)} leaves, {nb} kept elements"),
+                 sum(_q8_enc_bytes(x, i) for x, i in enc), 7.0 * nb,
+                 f"{len(enc)} leaves, {nb} kept elements in whole groups"),
         time_one("gather_dequantize",
                  lambda: [wire.gather_dequantize(pq, sc, inv)
                           for pq, sc, inv in dec],
@@ -2027,10 +2202,14 @@ def wire_phase(torch, dev):
     nodes, one dynamic round's gathers and 9 score views), from seeded
     synthetic data; the checks and times of phase 2, per width class, per
     run width, per launch and per view (quantize_pack_q4 at ResNet's 62
-    payload views only: Mamba2 runs no q4 wire)."""
+    payload views only: Mamba2 runs no q4 wire); and the codec API's
+    fused encodes and decodes (gather_quantize_q4, gather_quantize and
+    their decodes) at ResNet's 60 compacted leaves, then the encodes alone
+    (``encode_study``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.masks import MaskSyncConfig, budget
-    from repro_torch.core.shrinkage import plan_payload_shapes
+    from repro_torch.core.shrinkage import (compact_encode_views,
+                                            plan_payload_shapes)
     from repro_torch.models import build
     kernels = []
     for label, cfg, lead in (
@@ -2044,8 +2223,13 @@ def wire_phase(torch, dev):
         for k in check_quantize(torch, payload, lead, dev, label):
             kernels.append(dict(k, operands=label))
         if label == "resnet18":
-            for k in check_q4_pack(torch, payload, lead, dev, label):
+            views = compact_encode_views(bundle.shapes, bundle.plan,
+                                         budgets, lead)
+            for k in check_q4_pack(torch, payload, lead, dev, label) \
+                    + check_q4(torch, views, dev) \
+                    + check_q8_gather(torch, views, dev):
                 kernels.append(dict(k, operands=label))
+            encode_study(torch, views, dev)
         gathers, norms = round_operands(torch, bundle, lead, dev)
         for k in check_gather(torch, gathers, dev, label):
             kernels.append(dict(k, operands=label))
@@ -2131,7 +2315,8 @@ def main(argv) -> int:
         from repro_torch.kernels import _build
         from repro_torch.models import build
         from repro_torch.configs import get_config
-        from repro_torch.core.shrinkage import plan_payload_shapes
+        from repro_torch.core.shrinkage import (compact_encode_views,
+                                                plan_payload_shapes)
         from repro_torch.core.masks import MaskSyncConfig, budget
     except ImportError as e:
         return fail(f"the port is not importable next to this script: {e}")
@@ -2161,13 +2346,14 @@ def main(argv) -> int:
         budgets = {r.name: budget(r, MaskSyncConfig()) for r in
                    bundle.plan.rules}
         payload = plan_payload_shapes(bundle.shapes, bundle.plan, budgets)
+        views = compact_encode_views(bundle.shapes, bundle.plan, budgets, 4)
         kernels = check_prox(torch, bundle.shapes, 16, dev)
         kernels += check_quantize(torch, payload, 4, dev)
         kernels += check_q4_pack(torch, payload, 4, dev)
-        kernels += check_q4(torch, bundle.shapes, payload, 4, dev)
+        kernels += check_q4(torch, views, dev)
         gathers, norms = round_operands(torch, bundle, 4, dev)
         kernels += check_gather(torch, gathers, dev)
-        kernels += check_q8_gather(torch, bundle.shapes, payload, 4, dev)
+        kernels += check_q8_gather(torch, views, dev)
         kernels += check_group_norms(torch, norms, dev)
         del gathers, norms
         say("phase 2 kernels vs plain: ok")

@@ -288,6 +288,25 @@ def plan_payload_shapes(param_shapes: dict, plan: SparsityPlan,
     return shapes
 
 
+def compact_encode_views(param_shapes: dict, plan: SparsityPlan,
+                         budgets: dict, lead: int) -> list:
+    """[(key, R, C, B, rule)]: every leaf whose minor axis a compactable
+    rule slices, as the codec API's ``encode_compact`` takes it from a tree
+    of ``lead`` members: R rows of C full-width columns, of which the
+    payload keeps B, and the rule."""
+    out = []
+    for key, shape in param_shapes.items():
+        rule = compacting_rule(plan, key, len(shape) - 1) if shape else None
+        if rule is None:
+            continue
+        rows = lead
+        for s in shape[:-1]:
+            rows *= s
+        out.append((key, rows, shape[-1],
+                    budgets[rule.name] * rule.group_size, rule))
+    return out
+
+
 def plan_bytes(param_shapes: dict, plan: SparsityPlan, budgets: dict, dtype,
                codec=None) -> tuple[int, int]:
     """(dense_bytes, compact_bytes) of the inter-node payload over all

@@ -38,9 +38,11 @@
 // and scale NaN (fmaxf would drop it), and a quotient that is NaN (from a
 // NaN scale, or inf / inf) stores 0, as XLA's float-to-int8 convert does.
 //
-// The q8 gather kernels and the three q4 kernels below are described where
-// they are defined.  Every entry point has a plain C interface (loaded with ctypes), launches on
-// the caller's stream and returns cudaGetLastError().
+// The row engines read a row through a loader (Dense: the quantizers;
+// Kept: the fused gather encodes, which run the same engines over their
+// kept columns).  The other kernels are described where they are defined.
+// Every entry point has a plain C interface (loaded with ctypes), launches
+// on the caller's stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,9 +50,19 @@
 namespace {
 
 constexpr int kRowsPerBlock = 8;
+// the widest row whose kept columns a block stages in shared memory: 6
+// vectors of four a lane at 256 lanes (kernels/wire.py: _lanes), 24 KB
+constexpr int64_t kStagedCols = 256 * 6 * 4;
 
 unsigned row_blocks(int64_t R) {
   return (unsigned)((R + kRowsPerBlock - 1) / kRowsPerBlock);
+}
+
+// lanes a power of two up to 256; nv 1, 2, 3, 4 or 6 vectors a lane, or 0
+// (the row streams, one warp a row)
+bool plan_ok(int lanes, int nv) {
+  if (lanes < 1 || lanes > 256 || (lanes & (lanes - 1))) return false;
+  return nv == 0 ? lanes == 32 : (nv >= 1 && nv <= 4) || nv == 6;
 }
 
 // max that propagates NaN, as torch.amax and jnp.max do
@@ -65,16 +77,100 @@ __device__ __forceinline__ int8_t q8_value(float v, float sc, float levels) {
   return r != r ? (int8_t)0 : (int8_t)(int)fminf(fmaxf(r, -levels), levels);
 }
 
-template <int V>
-__device__ __forceinline__ void load_row(const float* p, float (&v)[V]) {
-  if constexpr (V == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else {
-#pragma unroll
-    for (int k = 0; k < V; ++k) v[k] = __ldg(p + k);
+// ---------------------------------------------------------------------------
+// Row loaders: vector j of an n-wide output row, V consecutive output
+// columns (V 4: four floats; V 2: a pair, its second column 0 past the
+// row's end; V 1: one float).
+// ---------------------------------------------------------------------------
+
+// Output column c reads column c of the source row (the quantizers).
+struct Dense {
+  const float* x;
+  int64_t ld;   // floats a source row
+  __device__ __forceinline__ const float* row(int64_t r) const {
+    return x + r * ld;
   }
+  template <int V, int W>
+  __device__ __forceinline__ void load(const float* xr, int64_t j, int64_t n,
+                                       float (&v)[W]) const {
+    if constexpr (V == 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(xr + 4 * j));
+      v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+    } else if constexpr (V == 2) {
+      v[0] = __ldg(xr + 2 * j);
+      v[1] = 2 * j + 1 < n ? __ldg(xr + 2 * j + 1) : 0.f;
+    } else {
+      v[0] = __ldg(xr + j);
+    }
+  }
+};
+
+// Output column c reads column cols[c] of the source row (the fused gather
+// encodes).  Staged (S): cols lie in shared memory as int32 and a vector
+// reads its four with one 16-byte load; else they lie in device memory as
+// the caller typed them (I) and are read one by one.  Four columns that
+// are one run from a multiple of 4 take one 16-byte load of x where
+// ``runs`` allows it (the host plan: C % 4 == 0 and x 16-byte aligned,
+// so every row is); other columns take one load each.
+template <class I, bool S>
+struct Kept {
+  static_assert(!S || sizeof(I) == 4, "staged columns are int32");
+  const float* x;
+  int64_t ld;   // floats a source row
+  const I* cols;
+  int runs;
+  __device__ __forceinline__ const float* row(int64_t r) const {
+    return x + r * ld;
+  }
+  __device__ __forceinline__ int64_t col(int64_t k) const {
+    if constexpr (S) return cols[k];
+    else return __ldg(cols + k);
+  }
+  template <int V, int W>
+  __device__ __forceinline__ void load(const float* xr, int64_t j, int64_t n,
+                                       float (&v)[W]) const {
+    if constexpr (V == 4) {
+      int64_t c[4];
+      if constexpr (S) {
+        const int4 t = *reinterpret_cast<const int4*>(cols + 4 * j);
+        c[0] = t.x, c[1] = t.y, c[2] = t.z, c[3] = t.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) c[k] = col(4 * j + k);
+      }
+      if (runs && (c[0] & 3) == 0 && c[1] == c[0] + 1 && c[2] == c[0] + 2 &&
+          c[3] == c[0] + 3) {
+        const float4 t = __ldg(reinterpret_cast<const float4*>(xr + c[0]));
+        v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = __ldg(xr + c[k]);
+      }
+    } else if constexpr (V == 2) {
+      v[0] = __ldg(xr + col(2 * j));
+      v[1] = 2 * j + 1 < n ? __ldg(xr + col(2 * j + 1)) : 0.f;
+    } else {
+      v[0] = __ldg(xr + col(j));
+    }
+  }
+};
+
+// The kept columns of a fused gather encode (n of them), staged once a
+// block in shared memory as int32: every row of the block reads the same
+// ones.  Every thread of the block reaches the barrier.
+template <class I>
+__device__ __forceinline__ const int32_t* stage_cols(const I* __restrict__ idx,
+                                                     int64_t n) {
+  extern __shared__ __align__(16) int32_t kept_cols[];
+  for (int64_t k = threadIdx.x; k < n; k += blockDim.x)
+    kept_cols[k] = (int32_t)__ldg(idx + k);
+  __syncthreads();
+  return kept_cols;
 }
+
+// ---------------------------------------------------------------------------
+// q8
+// ---------------------------------------------------------------------------
 
 template <int V>
 __device__ __forceinline__ void store_q8(int8_t* p, const float (&v)[V],
@@ -91,27 +187,27 @@ __device__ __forceinline__ void store_q8(int8_t* p, const float (&v)[V],
 
 // Rows held in registers: L lanes a row (a power of two up to 256: 256 / L
 // rows a block), lane l of a row holding its vectors l, l + L, ... (NV of
-// them at most, V floats each), loaded at once, reduced (shuffles within
-// a warp, then shared memory across the row's warps), quantized, stored.
-template <int NV, int V>
-__global__ void __launch_bounds__(256)
-    quantize_rows_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
-                         float* __restrict__ s, int64_t R, int64_t C, int L,
-                         float levels) {
-  __shared__ float warp_max[8];
+// them at most, V floats each; n output columns a row), loaded at once,
+// reduced (shuffles within a warp, then shared memory across the row's
+// warps), quantized, stored.
+template <int NV, int V, class Ld>
+__device__ __forceinline__ void q8_rows(const Ld& ld, int8_t* __restrict__ q,
+                                        float* __restrict__ s, int64_t R,
+                                        int64_t n, int L, float levels,
+                                        float* warp_max) {
   const int sub = threadIdx.x & (L - 1);
   const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / L;
   const bool active = row < R;
-  const int64_t nvec = C / V;
+  const int64_t nvec = n / V;
   // no load is conditional, so all of a lane's loads are issued before
   // the first is used: past the row's end a lane reads its last vector
   // again, and a row past R reads row R - 1 (neither is counted or stored)
-  const float* xr = x + (active ? row : R - 1) * C;
+  const float* xr = ld.row(active ? row : R - 1);
   float v[NV][V];
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int64_t j = sub + (int64_t)i * L;
-    load_row<V>(xr + (j < nvec ? j : nvec - 1) * V, v[i]);
+    ld.template load<V>(xr, j < nvec ? j : nvec - 1, n, v[i]);
   }
   float m = 0.f;
 #pragma unroll
@@ -131,7 +227,7 @@ __global__ void __launch_bounds__(256)
   }
   if (!active) return;
   const float sc = __fadd_rn(__fdiv_rn(m, levels), 1e-30f);
-  int8_t* qr = q + row * C;
+  int8_t* qr = q + row * n;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int64_t j = sub + (int64_t)i * L;
@@ -143,23 +239,21 @@ __global__ void __launch_bounds__(256)
 // Rows wider than the registers hold: one warp a row, eight rows a block;
 // the abs-max pass keeps four loads of a lane in flight, the quantize pass
 // reads the row again (from L1/L2).
-template <int V>
-__global__ void __launch_bounds__(256)
-    quantize_rows_kernel_stream(const float* __restrict__ x,
-                                int8_t* __restrict__ q,
-                                float* __restrict__ s, int64_t R, int64_t C,
-                                float levels) {
+template <int V, class Ld>
+__device__ __forceinline__ void q8_stream(const Ld& ld, int8_t* __restrict__ q,
+                                          float* __restrict__ s, int64_t R,
+                                          int64_t n, float levels) {
   const int lane = threadIdx.x & 31;
   const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (row >= R) return;
-  const int64_t nvec = C / V;
-  const float* xr = x + row * C;
+  const int64_t nvec = n / V;
+  const float* xr = ld.row(row);
   float m = 0.f;
   int64_t j = lane;
   for (; j + 96 < nvec; j += 128) {
     float v[4][V];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) load_row<V>(xr + (j + 32 * u) * V, v[u]);
+    for (int u = 0; u < 4; ++u) ld.template load<V>(xr, j + 32 * u, n, v[u]);
 #pragma unroll
     for (int u = 0; u < 4; ++u)
 #pragma unroll
@@ -167,73 +261,110 @@ __global__ void __launch_bounds__(256)
   }
   for (; j < nvec; j += 32) {
     float v[V];
-    load_row<V>(xr + j * V, v);
+    ld.template load<V>(xr, j, n, v);
 #pragma unroll
     for (int k = 0; k < V; ++k) m = nan_max(m, fabsf(v[k]));
   }
   for (int off = 16; off > 0; off >>= 1)
     m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
   const float sc = __fadd_rn(__fdiv_rn(m, levels), 1e-30f);
-  int8_t* qr = q + row * C;
+  int8_t* qr = q + row * n;
   for (j = lane; j < nvec; j += 32) {
     float v[V];
-    load_row<V>(xr + j * V, v);
+    ld.template load<V>(xr, j, n, v);
     store_q8<V>(qr + j * V, v, sc, levels);
   }
   if (lane == 0) s[row] = sc;
 }
 
+template <int NV, int V>
+__global__ void __launch_bounds__(256)
+    quantize_rows_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+                         float* __restrict__ s, int64_t R, int64_t C, int L,
+                         float levels) {
+  __shared__ float warp_max[8];
+  q8_rows<NV, V>(Dense{x, C}, q, s, R, C, L, levels, warp_max);
+}
+
 template <int V>
-int launch_quantize_rows(const float* x, int8_t* q, float* s, int64_t R,
-                         int64_t C, float levels, int lanes, int nv,
-                         cudaStream_t st) {
-  const unsigned blocks = (unsigned)((R * lanes + 255) / 256);
-  switch (nv) {
-#define QROWS(N)                                                          \
-  case N:                                                                 \
-    quantize_rows_kernel<N, V><<<blocks, 256, 0, st>>>(x, q, s, R, C,     \
-                                                       lanes, levels);    \
-    break;
-    QROWS(1) QROWS(2) QROWS(3) QROWS(4) QROWS(6)
-#undef QROWS
-    case 0:
-      quantize_rows_kernel_stream<V><<<row_blocks(R), 32 * kRowsPerBlock, 0,
-                                       st>>>(x, q, s, R, C, levels);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(256)
+    quantize_rows_kernel_stream(const float* __restrict__ x,
+                                int8_t* __restrict__ q,
+                                float* __restrict__ s, int64_t R, int64_t C,
+                                float levels) {
+  q8_stream<V>(Dense{x, C}, q, s, R, C, levels);
 }
 
 // Replaces gather_quantize of src/repro/kernels/wire.py: the q8 encode of
 // x[:, idx] (x (R, C) f32, idx (B,) int32 in [0, C)) -> q (R, B) int8, s
 // (R, 1) f32, the compact+q8 encode in one pass without materializing the
-// gathered rows.  The arithmetic is quantize_rows's (IEEE division, rintf,
-// NaN-propagating abs-max, a NaN quotient stores 0), so the result equals
-// the plain version (gather, then quantize) bit for bit.  Bytes bound; one
-// warp per row, the row's kept columns read twice (the second time from
-// L1/L2), each thread reading the indices of its own columns (cached by
-// __ldg; every row of the block reads the same ones).
-__global__ void gather_quantize_kernel(const float* __restrict__ x,
-                                       const int32_t* __restrict__ idx,
-                                       int8_t* __restrict__ q,
-                                       float* __restrict__ s, int64_t R,
-                                       int64_t C, int64_t B, float levels) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= R) return;
-  const float* xr = x + row * C;
-  float m = 0.f;
-  for (int64_t b = lane; b < B; b += 32)
-    m = nan_max(m, fabsf(__ldg(xr + __ldg(idx + b))));
-  for (int off = 16; off > 0; off >>= 1)
-    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
-  const float sc = __fadd_rn(__fdiv_rn(m, levels), 1e-30f);
-  int8_t* qr = q + row * B;
-  for (int64_t b = lane; b < B; b += 32)
-    qr[b] = q8_value(__ldg(xr + __ldg(idx + b)), sc, levels);
-  if (lane == 0) s[row] = sc;
+// gathered rows.  Bytes bound: each kept element read once (4 B) and
+// written once (1 B).  It runs quantize_rows's engines over the B kept
+// columns, with their plan (kernels/wire.py: gather_quantize_plan): the
+// row's kept elements held in registers between the abs-max and the
+// quantize, every load of a lane issued before the first use, char4
+// stores where B % 4 == 0.  The rules keep whole groups of channels
+// (ResNet: 8, 32 contiguous bytes of a row), so a vector of four kept
+// columns is mostly one aligned run: one 16-byte load.  The columns are
+// staged once a block in shared memory; rows too wide for the registers
+// stream and read their columns from device memory.  The arithmetic is
+// quantize_rows's, so the result equals the plain version (gather, then
+// quantize) bit for bit.
+template <int NV, int V>
+__global__ void __launch_bounds__(256)
+    gather_quantize_kernel(const float* __restrict__ x,
+                           const int32_t* __restrict__ idx,
+                           int8_t* __restrict__ q, float* __restrict__ s,
+                           int64_t R, int64_t C, int64_t B, int L, int runs,
+                           float levels) {
+  __shared__ float warp_max[8];
+  const int32_t* cols = stage_cols(idx, B);
+  q8_rows<NV, V>(Kept<int32_t, true>{x, C, cols, runs}, q, s, R, B, L,
+                 levels, warp_max);
+}
+
+template <int V>
+__global__ void __launch_bounds__(256)
+    gather_quantize_kernel_stream(const float* __restrict__ x,
+                                  const int32_t* __restrict__ idx,
+                                  int8_t* __restrict__ q,
+                                  float* __restrict__ s, int64_t R, int64_t C,
+                                  int64_t B, int runs, float levels) {
+  q8_stream<V>(Kept<int32_t, false>{x, C, idx, runs}, q, s, R, B, levels);
+}
+
+// One launch of quantize_rows (idx null: n = C) or of gather_quantize (n =
+// B kept columns of C), with the plan the host chose.
+template <int V>
+int launch_q8(const float* x, const int32_t* idx, int8_t* q, float* s,
+              int64_t R, int64_t C, int64_t n, float levels, int lanes,
+              int nv, int runs, cudaStream_t st) {
+  if (!plan_ok(lanes, nv) || (idx && nv && n > kStagedCols))
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((R * lanes + 255) / 256);
+  const size_t smem = idx ? (size_t)n * sizeof(int32_t) : 0;
+  switch (nv) {
+#define QROWS(N)                                                          \
+  case N:                                                                 \
+    if (idx)                                                              \
+      gather_quantize_kernel<N, V><<<blocks, 256, smem, st>>>(            \
+          x, idx, q, s, R, C, n, lanes, runs, levels);                    \
+    else                                                                  \
+      quantize_rows_kernel<N, V><<<blocks, 256, 0, st>>>(x, q, s, R, C,   \
+                                                         lanes, levels);  \
+    break;
+    QROWS(1) QROWS(2) QROWS(3) QROWS(4) QROWS(6)
+#undef QROWS
+    default:
+      if (idx)
+        gather_quantize_kernel_stream<V><<<row_blocks(R), 256, 0, st>>>(
+            x, idx, q, s, R, C, n, runs, levels);
+      else
+        quantize_rows_kernel_stream<V><<<row_blocks(R), 256, 0, st>>>(
+            x, q, s, R, C, levels);
+      break;
+  }
+  return (int)cudaGetLastError();
 }
 
 // Replaces gather_dequantize of src/repro/kernels/wire.py: q (R, Cq) int8,
@@ -264,14 +395,12 @@ __global__ void gather_dequantize_kernel(const int8_t* __restrict__ q,
 // column in the low nibble), one f32 scale max|row| / 7 + 1e-30 per row.
 //
 // Bound on an H100: bytes, like quantize_rows (a few operations per
-// element; 4 B read and half a byte written per element).  The fused
-// gather and unpack kernels below take one warp per row, eight rows per
-// 256-thread block; each lane quantizes the two neighbouring columns of
-// one output byte and stores the byte, so every byte is written whole by
-// one thread and no nibble needs a read-modify-write.  Scale and quotient
-// use IEEE division and rintf (round half to even), as the plain PyTorch
-// version and the reference do; a NaN quotient packs 0, as XLA's
-// float-to-int32 convert followed by & 0xF gives.
+// element; 4 B read and half a byte written per element).  Every output
+// byte is written whole by one thread, so no nibble needs a
+// read-modify-write.  Scale and quotient use IEEE division and rintf
+// (round half to even), as the plain PyTorch version and the reference
+// do; a NaN quotient packs 0, as XLA's float-to-int32 convert followed by
+// & 0xF gives.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float q4_scale(float m) {
@@ -319,20 +448,6 @@ struct Q4Table {
   int n;
 };
 
-// vector j of a row: four floats, or the pair of columns 2j, 2j + 1 (the
-// second 0 past an odd row's end)
-template <int V>
-__device__ __forceinline__ void load_vec(const float* xr, int64_t j,
-                                         int64_t C, float (&v)[4]) {
-  if constexpr (V == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(xr + 4 * j));
-    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else {
-    v[0] = __ldg(xr + 2 * j);
-    v[1] = 2 * j + 1 < C ? __ldg(xr + 2 * j + 1) : 0.f;
-  }
-}
-
 template <int V>
 __device__ __forceinline__ float vec_max(float m, const float (&v)[4]) {
 #pragma unroll
@@ -354,25 +469,26 @@ __device__ __forceinline__ void store_vec(uint8_t* pr, int64_t j, int64_t C,
   }
 }
 
-// Rows held in registers, as quantize_rows_kernel holds them: lane l of a
-// row takes its vectors l, l + L, ... (NV at most); past the row's end a
-// lane reads its last vector again, and a row past R reads row R - 1
-// (neither is counted or stored), so no load is conditional.
-template <int NV, int V>
-__device__ __forceinline__ void q4_rows(const Q4Leaf& f, uint32_t blk,
-                                        float* warp_max) {
+// Rows held in registers, as q8_rows holds them (f.C output columns a row,
+// read through the loader): lane l of a row takes its vectors l, l + L,
+// ... (NV at most); past the row's end a lane reads its last vector
+// again, and a row past R reads row R - 1 (neither is counted or stored),
+// so no load is conditional.
+template <int NV, int V, class Ld>
+__device__ __forceinline__ void q4_rows(const Q4Leaf& f, const Ld& ld,
+                                        uint32_t blk, float* warp_max) {
   const int L = (int)f.lanes;
   const int sub = threadIdx.x & (L - 1);
   const int64_t R = f.R, C = f.C;
   const int64_t row = ((int64_t)blk * blockDim.x + threadIdx.x) / L;
   const bool active = row < R;
   const int64_t nvec = (C + V - 1) / V;
-  const float* xr = f.x + (active ? row : R - 1) * C;
+  const float* xr = ld.row(active ? row : R - 1);
   float v[NV][4];
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int64_t j = sub + (int64_t)i * L;
-    load_vec<V>(xr, j < nvec ? j : nvec - 1, C, v[i]);
+    ld.template load<V>(xr, j < nvec ? j : nvec - 1, C, v[i]);
   }
   float m = 0.f;
 #pragma unroll
@@ -399,17 +515,18 @@ __device__ __forceinline__ void q4_rows(const Q4Leaf& f, uint32_t blk,
 }
 
 // Rows wider than the registers hold: one warp a row, eight rows a block.
-template <int V>
-__device__ __forceinline__ void q4_stream(const Q4Leaf& f, uint32_t blk) {
+template <int V, class Ld>
+__device__ __forceinline__ void q4_stream(const Q4Leaf& f, const Ld& ld,
+                                          uint32_t blk) {
   const int lane = threadIdx.x & 31;
   const int64_t row = (int64_t)blk * kRowsPerBlock + (threadIdx.x >> 5);
   if (row >= f.R) return;
   const int64_t C = f.C, nvec = (C + V - 1) / V;
-  const float* xr = f.x + row * C;
+  const float* xr = ld.row(row);
   float m = 0.f;
   for (int64_t j = lane; j < nvec; j += 32) {
     float v[4];
-    load_vec<V>(xr, j, C, v);
+    ld.template load<V>(xr, j, C, v);
     m = vec_max<V>(m, v);
   }
   for (int off = 16; off > 0; off >>= 1)
@@ -418,22 +535,22 @@ __device__ __forceinline__ void q4_stream(const Q4Leaf& f, uint32_t blk) {
   uint8_t* pr = f.p + row * ((C + 1) >> 1);
   for (int64_t j = lane; j < nvec; j += 32) {
     float v[4];
-    load_vec<V>(xr, j, C, v);
+    ld.template load<V>(xr, j, C, v);
     store_vec<V>(pr, j, C, v, sc);
   }
   if (lane == 0) f.s[row] = sc;
 }
 
-template <int V>
-__device__ __forceinline__ void q4_leaf(const Q4Leaf& f, uint32_t blk,
-                                        float* warp_max) {
+template <int V, class Ld>
+__device__ __forceinline__ void q4_leaf(const Q4Leaf& f, const Ld& ld,
+                                        uint32_t blk, float* warp_max) {
   switch (f.nv) {
-    case 1: q4_rows<1, V>(f, blk, warp_max); break;
-    case 2: q4_rows<2, V>(f, blk, warp_max); break;
-    case 3: q4_rows<3, V>(f, blk, warp_max); break;
-    case 4: q4_rows<4, V>(f, blk, warp_max); break;
-    case 6: q4_rows<6, V>(f, blk, warp_max); break;
-    default: q4_stream<V>(f, blk); break;
+    case 1: q4_rows<1, V>(f, ld, blk, warp_max); break;
+    case 2: q4_rows<2, V>(f, ld, blk, warp_max); break;
+    case 3: q4_rows<3, V>(f, ld, blk, warp_max); break;
+    case 4: q4_rows<4, V>(f, ld, blk, warp_max); break;
+    case 6: q4_rows<6, V>(f, ld, blk, warp_max); break;
+    default: q4_stream<V>(f, ld, blk); break;
   }
 }
 
@@ -448,40 +565,35 @@ __global__ void __launch_bounds__(256)
     else hi = mid - 1;
   }
   const Q4Leaf& f = t.leaf[lo];
-  if (f.vec == 4) q4_leaf<4>(f, b - f.first, warp_max);
-  else q4_leaf<2>(f, b - f.first, warp_max);
+  const Dense ld{f.x, f.C};
+  if (f.vec == 4) q4_leaf<4>(f, ld, b - f.first, warp_max);
+  else q4_leaf<2>(f, ld, b - f.first, warp_max);
 }
 
 // Replaces gather_quantize_q4 of src/repro/kernels/wire.py: the q4 encode
 // of x[:, idx] (x (R, C) f32, idx (B,) int64 in [0, C)) -> p (R,
-// ceil(B/2)), s (R, 1), without materializing the gathered rows.  Each
-// thread reads the indices of its own columns (cached by __ldg; every row
-// of the block reads the same ones).
-__global__ void gather_quantize_q4_kernel(const float* __restrict__ x,
-                                          const int64_t* __restrict__ idx,
-                                          uint8_t* __restrict__ p,
-                                          float* __restrict__ s, int64_t R,
-                                          int64_t C, int64_t B) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= R) return;
-  const float* xr = x + row * C;
-  float m = 0.f;
-  for (int64_t b = lane; b < B; b += 32)
-    m = nan_max(m, fabsf(__ldg(xr + __ldg(idx + b))));
-  for (int off = 16; off > 0; off >>= 1)
-    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
-  const float sc = q4_scale(m);
-  const int64_t Bp = (B + 1) >> 1;
-  uint8_t* pr = p + row * Bp;
-  for (int64_t j = lane; j < Bp; j += 32) {
-    const int64_t b = 2 * j;
-    const unsigned lo = q4_nibble(__ldg(xr + __ldg(idx + b)), sc);
-    const unsigned hi =
-        b + 1 < B ? q4_nibble(__ldg(xr + __ldg(idx + b + 1)), sc) : 0u;
-    pr[j] = (uint8_t)(lo | (hi << 4));
+// ceil(B/2)), s (R, 1), without materializing the gathered rows.  Bytes
+// bound, like gather_quantize, which it mirrors: one leaf f of B output
+// columns (f.C) run by quantize_pack_q4's engines with their plan
+// (kernels/wire.py: gather_quantize_q4_plan), each vector of four kept
+// columns that is one aligned run read with one 16-byte load, two packed
+// bytes stored a vector where B % 4 == 0 (else pairs, one byte each).
+// The columns are staged once a block in shared memory; rows too wide for
+// the registers stream and read their columns from device memory.
+__global__ void __launch_bounds__(256)
+    gather_quantize_q4_kernel(const __grid_constant__ Q4Leaf f,
+                              const int64_t* __restrict__ idx, int64_t C,
+                              int runs) {
+  __shared__ float warp_max[8];
+  if (f.nv == 0) {
+    const Kept<int64_t, false> ld{f.x, C, idx, runs};
+    if (f.vec == 4) q4_stream<4>(f, ld, blockIdx.x);
+    else q4_stream<2>(f, ld, blockIdx.x);
+    return;
   }
-  if (lane == 0) s[row] = sc;
+  const Kept<int32_t, true> ld{f.x, C, stage_cols(idx, f.C), runs};
+  if (f.vec == 4) q4_leaf<4>(f, ld, blockIdx.x, warp_max);
+  else q4_leaf<2>(f, ld, blockIdx.x, warp_max);
 }
 
 // Replaces unpack_gather_dequantize_q4 of src/repro/kernels/wire.py: p (R,
@@ -493,7 +605,7 @@ __global__ void gather_quantize_q4_kernel(const float* __restrict__ x,
 // by one zero byte column, every dropped column reads a zero nibble of the
 // pad byte, which is the zero-fill expansion without a scatter.  Bytes
 // bound (half a byte read and 4 B written per element); one warp per row,
-// the scale loaded once per row.
+// eight rows per block, the scale loaded once per row.
 __global__ void unpack_gather_dequantize_q4_kernel(
     const uint8_t* __restrict__ p, const float* __restrict__ s,
     const int64_t* __restrict__ idx, float* __restrict__ out, int64_t R,
@@ -524,20 +636,27 @@ int quantize_rows_f32(const float* x, int8_t* q, float* s, int64_t R,
                       void* stream) {
   if (R <= 0 || C <= 0) return (int)cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
-  return vec == 4 ? launch_quantize_rows<4>(x, q, s, R, C, (float)levels,
-                                            lanes, nv, st)
-                  : launch_quantize_rows<1>(x, q, s, R, C, (float)levels,
-                                            lanes, nv, st);
+  return vec == 4 ? launch_q8<4>(x, nullptr, q, s, R, C, C, (float)levels,
+                                 lanes, nv, 0, st)
+                  : launch_q8<1>(x, nullptr, q, s, R, C, C, (float)levels,
+                                 lanes, nv, 0, st);
 }
 
+// lanes and nv as for quantize_rows_f32, over the B output columns; vec 4
+// (vectors of four output columns, which needs B % 4 == 0) or 1; runs 1
+// lets a vector whose kept columns are one run from a multiple of 4 take
+// one 16-byte load (vec 4, C % 4 == 0 and a 16-byte aligned x), as
+// kernels/wire.py: gather_quantize_plan chooses them.
 int gather_quantize_f32(const float* x, const int32_t* idx, int8_t* q,
                         float* s, int64_t R, int64_t C, int64_t B, int levels,
-                        void* stream) {
+                        int lanes, int nv, int vec, int runs, void* stream) {
   if (R <= 0 || B <= 0) return (int)cudaSuccess;
-  gather_quantize_kernel<<<row_blocks(R), 32 * kRowsPerBlock, 0,
-                           (cudaStream_t)stream>>>(x, idx, q, s, R, C, B,
-                                                   (float)levels);
-  return (int)cudaGetLastError();
+  if (idx == nullptr || (vec == 4 && B % 4)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return vec == 4 ? launch_q8<4>(x, idx, q, s, R, C, B, (float)levels,
+                                 lanes, nv, runs, st)
+                  : launch_q8<1>(x, idx, q, s, R, C, B, (float)levels,
+                                 lanes, nv, 0, st);
 }
 
 int gather_dequantize_f32(const int8_t* q, const float* s, const int32_t* idx,
@@ -574,12 +693,26 @@ int quantize_pack_q4_table(const int64_t* fields, int n, int64_t blocks,
   return (int)cudaGetLastError();
 }
 
+// lanes, nv as for quantize_rows_f32, over the B output columns; vec 4
+// (vectors of four output columns, two packed bytes; B % 4 == 0) or 2
+// (pairs); runs as for gather_quantize_f32 (kernels/wire.py:
+// gather_quantize_q4_plan).
 int gather_quantize_q4_f32(const float* x, const int64_t* idx, uint8_t* p,
                            float* s, int64_t R, int64_t C, int64_t B,
+                           int lanes, int nv, int vec, int runs,
                            void* stream) {
   if (R <= 0 || B <= 0) return (int)cudaSuccess;
-  gather_quantize_q4_kernel<<<row_blocks(R), 32 * kRowsPerBlock, 0,
-                              (cudaStream_t)stream>>>(x, idx, p, s, R, C, B);
+  if (idx == nullptr || !plan_ok(lanes, nv) || (vec != 4 && vec != 2) ||
+      (vec == 4 && B % 4) || (nv && B > kStagedCols) ||
+      R >= ((int64_t)1 << 32) || B >= ((int64_t)1 << 32))
+    return (int)cudaErrorInvalidValue;
+  const Q4Leaf f = {x, p, s, (uint32_t)R, (uint32_t)B, (uint32_t)lanes,
+                    (uint32_t)nv, (uint32_t)vec, 0u};
+  const int64_t blocks = nv == 0 ? (R + 7) / 8 : (R * lanes + 255) / 256;
+  const size_t smem = nv ? (size_t)B * sizeof(int32_t) : 0;
+  gather_quantize_q4_kernel<<<(unsigned)blocks, 256, smem,
+                              (cudaStream_t)stream>>>(f, idx, C,
+                                                      vec == 4 ? runs : 0);
   return (int)cudaGetLastError();
 }
 

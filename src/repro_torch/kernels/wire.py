@@ -19,9 +19,12 @@ function of the leaf shape, so ``wire_bytes`` stays analytic.
 :func:`quantize_plan` chooses ``quantize_rows``'s launch from the row
 width and the base address, :func:`q4_plan` each leaf's of
 ``quantize_pack_q4``, which encodes many leaves in one launch
-(:func:`quantize_pack_q4_table`); both are plain functions, so the CPU
-tests check them.  A tensor on the CPU takes the plain version
-(``kernels/ref.py``); a CUDA tensor launches the kernel or raises.
+(:func:`quantize_pack_q4_table`); the fused gather encodes run the same
+row engines over their kept columns, with the plans
+:func:`gather_quantize_plan` and :func:`gather_quantize_q4_plan`.  All
+are plain functions, so the CPU tests check them.  A tensor on the CPU
+takes the plain version (``kernels/ref.py``); a CUDA tensor launches the
+kernel or raises.
 ``launches`` counts launches.  The q8 gather kernels take int32
 indices, as the TPU kernels do; the q4 ones int64.
 """
@@ -48,10 +51,12 @@ def _lib():
         for name, args in (
                 ("quantize_rows_f32",
                  [_P, _P, _P, _I64, _I64] + [_INT] * 4 + [_P]),
-                ("gather_quantize_f32", [_P] * 4 + [_I64] * 3 + [_INT, _P]),
+                ("gather_quantize_f32", [_P] * 4 + [_I64] * 3 + [_INT] * 5
+                 + [_P]),
                 ("gather_dequantize_f32", [_P] * 4 + [_I64] * 3 + [_P]),
                 ("quantize_pack_q4_table", [_P, _INT, _I64, _P]),
-                ("gather_quantize_q4_f32", [_P] * 4 + [_I64] * 3 + [_P]),
+                ("gather_quantize_q4_f32", [_P] * 4 + [_I64] * 3
+                 + [_INT] * 4 + [_P]),
                 ("unpack_gather_dequantize_q4_f32",
                  [_P] * 4 + [_I64] * 3 + [_P])):
             fn = getattr(lib, name)
@@ -144,6 +149,45 @@ def _q4_leaf(R: int, C: int, xmis: int, pmis: int) -> tuple[int, ...]:
     return plan + (q4_blocks(R, *plan[:2]),)
 
 
+def _runs(vec: int, C: int, xptr: int) -> int:
+    """1 where a vector of four kept columns that are one run from a
+    multiple of 4 may be read with one 16-byte load: vectors of four, C %
+    4 == 0 and x 16-byte aligned (then every row is)."""
+    return int(vec == 4 and C % 4 == 0 and xptr % 16 == 0)
+
+
+def gather_quantize_plan(R: int, B: int, C: int,
+                         xptr: int) -> tuple[int, int, int, int]:
+    """(lanes, nv, vec, runs) of ``gather_quantize`` on ``R`` rows of
+    ``B`` kept columns of an (R, C) x at address ``xptr``: vectors of
+    four output columns (vec 4: their kept columns read with one 16-byte
+    load where they are one run from a multiple of 4 and ``runs`` is 1,
+    as the kernel decides on the device, else one load each; a char4
+    stored) where B % 4 == 0, else single columns; lanes and vectors a
+    lane over the B columns as quantize_rows takes them (:func:`_lanes`;
+    nv 0 streams, with lanes 32)."""
+    vec = 4 if B % 4 == 0 else 1
+    return _lanes(R, B // vec) + (vec, _runs(vec, C, xptr))
+
+
+def gather_quantize_q4_plan(R: int, B: int, C: int,
+                            xptr: int) -> tuple[int, int, int, int]:
+    """(lanes, nv, vec, runs) of ``gather_quantize_q4``, as
+    :func:`gather_quantize_plan` chooses them, with pairs of columns (vec
+    2, one packed byte; an odd B's last pair holds one column) where B %
+    4 != 0; vectors of four store two packed bytes."""
+    vec = 4 if B % 4 == 0 else 2
+    return _lanes(R, -(-B // vec)) + (vec, _runs(vec, C, xptr))
+
+
+@functools.lru_cache(maxsize=4096)
+def _encode_plan(q4: bool, R: int, B: int, C: int,
+                 xmis: int) -> tuple[int, int, int, int]:
+    """A fused encode's plan, cached (``xmis``: x's address modulo 16)."""
+    return (gather_quantize_q4_plan if q4 else gather_quantize_plan)(
+        R, B, C, xmis)
+
+
 def quantize_rows(x, *, levels: int = 127):
     """x: (R, C) float32 -> (q int8 (R, C), scale f32 (R, 1))."""
     if _on_cpu("quantize_rows", x):
@@ -173,9 +217,10 @@ def gather_quantize(x, idx, *, levels: int = 127):
     B = idx.shape[0]
     q = torch.empty((R, B), dtype=torch.int8, device=x.device)
     s = torch.empty((R, 1), dtype=torch.float32, device=x.device)
+    plan = _encode_plan(False, R, B, C, x.data_ptr() % 16)
     err = _lib().gather_quantize_f32(x.data_ptr(), idx.data_ptr(),
                                      q.data_ptr(), s.data_ptr(), R, C, B,
-                                     levels, _stream(x))
+                                     levels, *plan, _stream(x))
     _build.check(err, "gather_quantize")
     launches["gather_quantize"] += 1
     return q, s
@@ -267,9 +312,10 @@ def gather_quantize_q4(x, idx):
     B = idx.shape[0]
     p = torch.empty((R, (B + 1) // 2), dtype=torch.uint8, device=x.device)
     s = torch.empty((R, 1), dtype=torch.float32, device=x.device)
+    plan = _encode_plan(True, R, B, C, x.data_ptr() % 16)
     err = _lib().gather_quantize_q4_f32(x.data_ptr(), idx.data_ptr(),
                                         p.data_ptr(), s.data_ptr(), R, C, B,
-                                        _stream(x))
+                                        *plan, _stream(x))
     _build.check(err, "gather_quantize_q4")
     launches["gather_quantize_q4"] += 1
     return p, s

@@ -14,7 +14,9 @@ from repro.kernels import ref as jref  # noqa: E402
 
 from repro_torch.kernels import compact, ops, wire  # noqa: E402
 
-from torch_port_helpers import to_np  # noqa: E402
+from torch_encode_cases import (check_encode_plan,  # noqa: E402
+                                codec_views, kept_index)
+from torch_port_helpers import jax_reference, to_np  # noqa: E402
 
 # the shapes of tests/test_kernels.py::test_prox_sgd_update_shim, plus
 # stacked (W, ...) leaves as local_step passes them and 0-D leaves
@@ -374,6 +376,58 @@ def test_quantize_plan_covers_rows(C, R, ptr):
             assert lanes == 256
     else:
         assert lanes == 32 and nvec > 256 * wire.QUANT_NV[-1]
+
+
+# ---------------------------------------------------------------------------
+# the fused q8 encode's plan (wire.gather_quantize_plan)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ptr", [0, 4])
+def test_gather_quantize_plan_covers_codec_operands(ptr):
+    """ResNet-18's 60 encode_compact operands at 4 members, whose rules
+    keep whole groups of 8: every row in registers, vectors of four, read
+    as 16-byte runs at an aligned base and column by column at a base 4
+    bytes off."""
+    views = codec_views("resnet18", 4)
+    assert len(views) == 60
+    for _, R, C, B, rule in views:
+        assert rule.group_size == 8
+        lanes, nv, vec, runs = check_encode_plan(
+            wire.gather_quantize_plan, R, B, C, ptr, q4=False)
+        assert nv > 0 and vec == 4 and runs == (ptr == 0)
+
+
+@pytest.mark.parametrize("R,B,C,ptr", [
+    (1, 256, 512, 0),         # one row
+    (97, 10, 33, 0),          # B % 4 != 0: single columns
+    (97, 12, 33, 0),          # C % 4 != 0: no 16-byte runs
+    (5, 6144, 12288, 0),      # the widest row held in registers
+    (5, 8192, 16384, 0),      # too wide: streams
+    (3, 6146, 12288, 4),      # too wide for single columns
+    (18432, 256, 512, 16),    # ResNet's largest leaf
+    (213450, 1536, 3072, 0),  # a Mamba2-wide view
+])
+def test_gather_quantize_plan_edges(R, B, C, ptr):
+    check_encode_plan(wire.gather_quantize_plan, R, B, C, ptr, q4=False)
+
+
+@pytest.mark.parametrize("kind", ["groups", "off4", "unsorted"])
+@pytest.mark.parametrize("R,C,B", [(6, 64, 32), (3, 128, 40)])
+def test_gather_quantize_equals_jitted_reference(kind, R, C, B):
+    """vs the jitted JAX shim with the eager reference's division (fault
+    B): q exact, scales to one ulp."""
+    x = np.asarray(np.random.default_rng(R + C).standard_normal((R, C)) * 3,
+                   np.float32)
+    idx = kept_index(kind, C, B, 5).astype(np.int32)
+    with jax_reference(ieee_quantize=True):
+        jq, js = jax.jit(jops.gather_quantize)(jnp.asarray(x),
+                                               jnp.asarray(idx))
+    tq, ts = ops.gather_quantize(torch.from_numpy(x), torch.from_numpy(idx))
+    np.testing.assert_array_equal(to_np(tq), np.asarray(jq))
+    js, ts = np.asarray(js), to_np(ts)
+    assert ts.shape == js.shape
+    assert np.all(np.abs(ts - js) <= np.spacing(np.abs(js)))
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,8 @@ from repro_torch.kernels import fused_prox_sgd as tfp  # noqa: E402
 from repro_torch.kernels import group_norms  # noqa: E402
 from repro_torch.kernels import ops, ref, ssd_scan, wire  # noqa: E402
 
+from torch_encode_cases import codec_views, kept_index  # noqa: E402
+
 pytestmark = pytest.mark.cuda
 
 PROX_SHAPES = [(16, 3, 3, 64, 64), (16, 512, 10), (16, 10), (16, 3, 3, 3, 63),
@@ -741,3 +743,83 @@ def test_mamba_smoke_rounds_are_bit_equal(dev):
         assert torch.equal(a["z"][0][key], b["z"][0][key]), key
     assert torch.equal(a["masks"]["ssm_heads"]["idx"],
                        b["masks"]["ssm_heads"]["idx"])
+
+
+# ---------------------------------------------------------------------------
+# the fused encodes on each path of their plans (wire.gather_quantize_plan,
+# wire.gather_quantize_q4_plan): vectors of four kept columns read as one
+# 16-byte run or column by column, single columns and pairs, rows held in
+# registers or streamed
+# ---------------------------------------------------------------------------
+
+
+def _kept(kind, C, B, seed, dev, g=8):
+    """``torch_encode_cases.kept_index`` on the card."""
+    return torch.from_numpy(kept_index(kind, C, B, seed, g)).to(dev)
+
+
+def _encodes_equal_plain(x, idx):
+    """Both fused encodes of x[:, idx], one launch each, bit-equal to the
+    plain versions."""
+    i32 = idx.to(torch.int32)
+    ops.reset_launch_counts()
+    q, s = wire.gather_quantize(x, i32)
+    p, s4 = wire.gather_quantize_q4(x, idx)
+    counts = ops.launch_counts()
+    assert counts["gather_quantize"] == 1 == counts["gather_quantize_q4"]
+    qp, sp = ref.gather_quantize_ref(x, i32)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and torch.equal(q, qp)
+    torch.testing.assert_close(s, sp, rtol=0, atol=0, equal_nan=True)
+    _assert_q4_equal(p, s4, *ref.gather_quantize_q4_ref(x, idx))
+
+
+ENCODE_PATHS = [   # (R, C, B, kept kind, base offset in floats)
+    (37, 512, 256, "groups", 0),      # 16-byte runs, one vector a lane
+    (4608, 512, 256, "groups", 0),    # 16-byte runs, 4 vectors a lane
+    (37, 512, 256, "broken", 0),      # a run broken inside a vector
+    (37, 512, 256, "off4", 0),        # runs off a multiple of 4
+    (37, 512, 256, "cols", 0),        # vectors read column by column
+    (97, 33, 10, "cols", 0),          # B % 4 != 0: single columns, pairs
+    (97, 33, 9, "cols", 0),           # odd B: a pad nibble
+    (13, 512, 256, "groups", 1),      # a base 4 bytes off: no runs
+    (1, 512, 256, "groups", 0),       # one row
+    (3, 2048, 1024, "groups", 0),     # 256 lanes a row
+    (5, 12288, 6144, "groups", 0),    # the widest row staged
+    (3, 16384, 8192, "groups", 0),    # streamed rows
+    (3, 16384, 8190, "cols", 0),      # streamed single columns and pairs
+]
+
+
+@pytest.mark.parametrize("R,C,B,kind,off", ENCODE_PATHS)
+def test_gather_encodes_plan_paths_equal_plain(R, C, B, kind, off, dev):
+    x = _randn((R * C + off,), R + B, dev, 0.05)[off:].view(R, C)
+    _encodes_equal_plain(x, _kept(kind, C, B, R, dev))
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+@pytest.mark.parametrize("kind", ["groups", "cols"])
+def test_gather_encodes_nonfinite_rows_equal_plain(value, kind, dev):
+    """A kept NaN or inf gives the plain versions' NaN or inf scale and
+    zeros where the quotient is NaN; one in a dropped column changes
+    nothing."""
+    x = _randn((13, 512), 4, dev)
+    idx = _kept(kind, 512, 256, 3, dev)
+    dropped = torch.ones(512, dtype=torch.bool, device=dev)
+    dropped[idx] = False
+    x[1, idx[5]] = x[12, idx[-1]] = float(value)
+    x[4, dropped.nonzero()[0, 0]] = float(value)
+    _encodes_equal_plain(x, idx)
+
+
+def test_gather_encodes_codec_operands_equal_plain(dev):
+    """ResNet-18's 60 encode_compact operands at 4 members (the codec
+    API's), at kept sets of whole groups (the rules') and of single
+    columns, bit-equal."""
+    views = codec_views("resnet18", 4)
+    assert len(views) == 60
+    for n, (_, R, C, B, rule) in enumerate(views):
+        x = _randn((R, C), n, dev, 0.05)
+        for kind in ("groups", "cols"):
+            _encodes_equal_plain(x, _kept(kind, C, B, n, dev,
+                                          rule.group_size))

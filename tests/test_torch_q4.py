@@ -19,6 +19,8 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch import comm as tcomm  # noqa: E402
 from repro_torch.kernels import ops, wire  # noqa: E402
 
+from torch_encode_cases import (check_encode_plan,  # noqa: E402
+                                codec_views, kept_index)
 from torch_port_helpers import (ieee_gather_quantize_q4,  # noqa: E402
                                 ieee_quantize_pack_q4, jax_reference, to_np)
 
@@ -316,3 +318,57 @@ def test_q4_table_holds_the_resnet_payload_in_one_launch():
     for R, C in views:
         lanes, nv, vec = wire.q4_plan(R, C, 0, 0)
         assert nv > 0 and vec == (4 if C % 4 == 0 else 2)
+
+
+# ---------------------------------------------------------------------------
+# the fused q4 encode's plan (wire.gather_quantize_q4_plan)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ptr", [0, 4])
+def test_gather_quantize_q4_plan_covers_codec_operands(ptr):
+    """ResNet-18's 60 encode_compact operands at 4 members: every row in
+    registers, vectors of four (two packed bytes), read as 16-byte runs at
+    an aligned base and column by column at a base 4 bytes off."""
+    views = codec_views("resnet18", 4)
+    assert len(views) == 60
+    for _, R, C, B, _ in views:
+        lanes, nv, vec, runs = check_encode_plan(
+            wire.gather_quantize_q4_plan, R, B, C, ptr, q4=True)
+        assert nv > 0 and vec == 4 and runs == (ptr == 0)
+        assert wire.q4_blocks(R, lanes, nv) * (256 // lanes) >= R
+
+
+@pytest.mark.parametrize("R,B,C,ptr", [
+    (1, 256, 512, 0),         # one row
+    (97, 9, 33, 0),           # odd B: pairs, one pad nibble
+    (97, 10, 33, 0),          # B % 4 == 2: pairs
+    (97, 12, 33, 0),          # C % 4 != 0: no 16-byte runs
+    (5, 6144, 12288, 0),      # the widest row held in registers
+    (5, 8192, 16384, 4),      # too wide: streams
+    (3, 3073, 6146, 0),       # too wide for pairs
+    (18432, 256, 512, 0),     # ResNet's largest leaf
+])
+def test_gather_quantize_q4_plan_edges(R, B, C, ptr):
+    lanes, nv, vec, runs = check_encode_plan(
+        wire.gather_quantize_q4_plan, R, B, C, ptr, q4=True)
+    blocks = wire.q4_blocks(R, lanes, nv)
+    rows = 8 if nv == 0 else 256 // lanes
+    assert blocks * rows >= R > (blocks - 1) * rows
+
+
+@pytest.mark.parametrize("kind", ["groups", "off4", "unsorted"])
+@pytest.mark.parametrize("R,C,B", [(6, 64, 32), (3, 128, 40)])
+def test_gather_quantize_q4_equals_jitted_reference(kind, R, C, B):
+    """vs the jitted JAX shim with the eager reference's division (fault
+    B): packed bytes exact, scales to one ulp."""
+    x = _x((R, C), R + C, 3.0)
+    idx = kept_index(kind, C, B, 6)
+    with jax_reference(ieee_quantize=True):
+        jp, js = jax.jit(jops.gather_quantize_q4)(jnp.asarray(x),
+                                                  jnp.asarray(idx))
+    tp, ts = ops.gather_quantize_q4(torch.from_numpy(x),
+                                    torch.from_numpy(idx))
+    np.testing.assert_array_equal(to_np(tp), np.asarray(jp))
+    assert tuple(ts.shape) == js.shape
+    _ulp_close(to_np(ts), js)
