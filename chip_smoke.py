@@ -29,7 +29,10 @@ Phases (any failure exits non-zero and prints no result line):
    Q > 1 and S > 1, a base 4 bytes off, a table over one launch's
    capacity, bit-equal; gather_quantize(_q4) and their decodes: the
    codec API's compacted leaves at kept sets of whole groups (the rules')
-   and of single columns, odd-C, one-row and NaN/inf rows, bit-equal;
+   and of single columns, odd-C, one-row and NaN/inf rows, the decodes on
+   the padded operands (the TPU kernels'), the unpadded ones with the
+   zero index (the shims'), without an index and by an arange,
+   bit-equal;
    group_norms_sq: one dynamic round's score views, K = 1, K minor, C
    minor, a Mamba2-like view, fan-ins its slices do not divide, an
    unaligned base and bf16, rtol 1e-5 and the same bits twice), and time
@@ -37,7 +40,8 @@ Phases (any failure exits non-zero and prints no result line):
    quantize_pack_q4 also per row width beside the plan, for gather_groups
    per run width and per launch, for group_norms_sq per view beside its
    launch plan; the gather's library call is take_along_dim on its
-   (R/(S P), S, P, C/g, g Q) view);
+   (R/(S P), S, P, C/g, g Q) view; the decodes' zero-fill shims' whole
+   route, every launch it makes summed by kernel);
 3. train full-width ResNet-18 with H-SADMM through the port's ``train``:
    16 workers stacked on the card, levels (4, 4), compact+q8 inter-node
    wire, 32 images per worker, 6 rounds of 8 local steps, masks frozen at
@@ -51,8 +55,9 @@ Phases (any failure exits non-zero and prints no result line):
    round and the final theta/z;
 3c. the q4 codec API (``get_codec("compact+q4")``: encode/decode and
    encode_compact/decode_expand) on every leaf of phase 3's consensus z
-   with its frozen masks, counts zeroed before and read after, each
-   result against the plain versions and within half a quantum;
+   with its frozen masks, counts zeroed before and read after (one
+   decode launch a leaf), each result against the plain versions and
+   within half a quantum;
 3d. the same for the dense and q8 codec API (``compact``,
    ``compact+q8``): dense exact, q8 within half a quantum;
 3e. kernel route against plain route: phase 3's first three (dynamic)
@@ -101,7 +106,8 @@ Phases (any failure exits non-zero and prints no result line):
 ResNet-18 operands and at Mamba2's (phase 6a's configuration, seeded
 synthetic data of the shapes phase 6d records), and phase 2's checks and
 times of the codec API's fused encodes and decodes at ResNet's operands;
-then the encodes per class of leaf size beside their plans, their four
+then the encodes and the decodes (on the zero-fill shims' operands) per
+class of leaf size beside their plans, the encodes' four
 large leaves at kept sets laid out in other ways (runs of 2 and 4 groups,
 the first B columns, all columns), and the q8 encode's two parts alone
 on those leaves (quantize_rows without the gather, gather_groups without
@@ -441,11 +447,11 @@ def _compact_operands(torch, views, gen, dev):
     return enc
 
 
-def _encode_class(x, idx) -> str:
-    """A fused encode's leaf class by kept elements: large (at least 2^21:
-    ResNet's four leaves of 3.5 us of q8 bound or more), middle (2^16 to
-    2^21) or small (fewer: the launch alone sets the time)."""
-    n = x.shape[0] * idx.shape[0]
+def _leaf_class(n: int) -> str:
+    """A codec leaf's class by its ``n`` kept elements: large (at least
+    2^21: ResNet's four leaves of 3.5 us of q8 encode bound or more),
+    middle (2^16 to 2^21) or small (fewer: the launch alone sets the
+    time)."""
     return "large" if n >= 1 << 21 else "middle" if n >= 1 << 16 \
         else "small"
 
@@ -471,48 +477,134 @@ def _q4_bytes(xs) -> float:
                + 4.0 * x.shape[0] for x in xs)
 
 
-def encode_study(torch, views, dev):
-    """``--wire``: the fused encodes over the codec API's compacted leaves
-    ``views`` by class of leaf (``encode_classes``); their large leaves at
-    kept sets laid out in other ways (``kept_layouts``); and the q8
-    encode's two parts alone on them (``encode_parts``)."""
+def _q8_decode_operands(q, s, idx, full):
+    """(q, s, index) that ``ops.scatter_dequantize`` hands the q8 decode
+    kernel for the zero-fill expansion of q (R, B) with kept columns idx
+    into ``full`` columns: q itself, dropped columns at index B."""
+    from repro_torch.kernels import ref
+    return q, s, ref.inverse_index(idx, full)
+
+
+def _q4_decode_operands(p, s, idx, full):
+    """(p, s, index) that ``ops.scatter_dequantize_q4`` hands the q4
+    decode kernel for the zero-fill expansion of p (R, ceil(B/2)): p
+    itself, dropped columns at nibble 2 Cp."""
+    from repro_torch.kernels import ref
+    return p, s, ref.inverse_index_q4(p, idx, full)
+
+
+def _q8_dec_bytes(R, B, Cout) -> float:
+    """Bytes of the q8 zero-fill decode of R rows of B kept columns into
+    Cout: the kept q bytes and the scales read once, the int32 index
+    read, the f32 output written."""
+    return float(R * B) + 4.0 * R + 4.0 * Cout + 4.0 * R * Cout
+
+
+def _q4_dec_bytes(R, B, Cout) -> float:
+    """Bytes of the q4 zero-fill decode: the packed kept bytes and the
+    scales read once, the int64 index read, the f32 output written."""
+    return float(R * ((B + 1) // 2)) + 4.0 * R + 8.0 * Cout \
+        + 4.0 * R * Cout
+
+
+def codec_study(torch, views, dev):
+    """``--wire``: the fused encodes and the decodes over the codec API's
+    compacted leaves ``views`` by class of leaf (``kernel_classes``), the
+    decodes on the operands their zero-fill shims pass; the encodes' large
+    leaves at kept sets laid out in other ways (``kept_layouts``); and the
+    q8 encode's two parts alone on them (``encode_parts``)."""
     from repro_torch.kernels import wire
     gen = torch.Generator(device=dev).manual_seed(6)
     ops3 = _compact_operands(torch, views, gen, dev)
     enc = [(x, kept) for x, kept, _ in ops3]
-    encode_classes(torch, "gather_quantize",
-                   [(x, i.to(torch.int32)) for x, i in enc],
-                   wire.gather_quantize, wire.gather_quantize_plan,
-                   _q8_enc_bytes)
-    encode_classes(torch, "gather_quantize_q4", enc, wire.gather_quantize_q4,
-                   wire.gather_quantize_q4_plan, _q4_enc_bytes)
+    enc8 = [(x, i.to(torch.int32)) for x, i in enc]
+    kernel_classes(torch, "gather_quantize",
+                   [((x, i), x.shape[0] * i.shape[0], _q8_enc_bytes(x, i))
+                    for x, i in enc8], wire.gather_quantize,
+                   lambda x, i: wire.gather_quantize_plan(
+                       x.shape[0], i.shape[0], x.shape[1], x.data_ptr()))
+    kernel_classes(torch, "gather_quantize_q4",
+                   [((x, i), x.shape[0] * i.shape[0], _q4_enc_bytes(x, i))
+                    for x, i in enc], wire.gather_quantize_q4,
+                   lambda x, i: wire.gather_quantize_q4_plan(
+                       x.shape[0], i.shape[0], x.shape[1], x.data_ptr()))
+    R_B_C = [(x.shape[0], i.shape[0], x.shape[1]) for x, i in enc]
+    kernel_classes(torch, "gather_dequantize", [
+        (_q8_decode_operands(*wire.gather_quantize(x, i), i, C), R * B,
+         _q8_dec_bytes(R, B, C)) for (x, i), (R, B, C) in zip(enc8, R_B_C)],
+        wire.gather_dequantize,
+        lambda q, s, i: wire.gather_dequantize_plan(
+            q.shape[0], i.shape[0], q.shape[1], q.data_ptr(), 0))
+    kernel_classes(torch, "unpack_gather_dequantize_q4", [
+        (_q4_decode_operands(*wire.gather_quantize_q4(x, i), i, C), R * B,
+         _q4_dec_bytes(R, B, C)) for (x, i), (R, B, C) in zip(enc, R_B_C)],
+        wire.unpack_gather_dequantize_q4,
+        lambda p, s, i: wire.unpack_gather_dequantize_q4_plan(
+            p.shape[0], i.shape[0], p.shape[1], p.data_ptr(), 0))
     large = [(x, kept, rule.group_size)
              for (*_, rule), (x, kept, _) in zip(views, ops3)
-             if _encode_class(x, kept) == "large"]
+             if _leaf_class(x.shape[0] * kept.shape[0]) == "large"]
+    decode_yardsticks(torch, [x.shape for x, _, _ in large], gen, dev)
     kept_layouts(torch, large, gen, dev)
     encode_parts(torch, large)
 
 
-def encode_classes(torch, name, enc, encode, plan, nbytes):
-    """Time the fused encode ``name`` over the leaves ``enc`` [(x, idx)]
-    by class of leaf (``_encode_class``), one line each with the rows,
-    widths and launch plans (``plan``) of its leaves; ``nbytes(x, idx)``:
-    a leaf's bytes."""
+def decode_yardsticks(torch, shapes, gen, dev):
+    """What one launch a leaf moves at the decodes' large shapes [(R, C)]:
+    the identity decodes of whole (R, C) rows (``wire.dequantize_rows``:
+    1 B read and 4 B written an element; ``wire.unpack_dequantize_q4``:
+    half a byte read), beside PyTorch's own cast of the int8 rows to f32
+    (the same bytes without the scale) and its zero fill of the f32
+    output (4 B written an element), each against its bytes' bound."""
+    from repro_torch.kernels import wire
+    qs = [torch.randint(-127, 128, shp, generator=gen, device=dev,
+                        dtype=torch.int8) for shp in shapes]
+    ps = [torch.randint(0, 256, (R, C // 2), generator=gen, device=dev,
+                        dtype=torch.uint8) for R, C in shapes]
+    ss = [torch.rand((R, 1), generator=gen, device=dev) for R, _ in shapes]
+    outs = [torch.empty(shp, device=dev) for shp in shapes]
+    n = sum(R * C for R, C in shapes)
+    rows = sum(R for R, _ in shapes)
+    parts = []
+    for what, fn, nbytes in (
+            ("dequantize_rows", lambda: [wire.dequantize_rows(q, s)
+                                         for q, s in zip(qs, ss)],
+             5.0 * n + 4.0 * rows),
+            ("unpack_dequantize_q4",
+             lambda: [wire.unpack_dequantize_q4(p, s, 2 * p.shape[1])
+                      for p, s in zip(ps, ss)], 4.5 * n + 4.0 * rows),
+            ("torch cast int8 -> f32", lambda: [q.to(torch.float32)
+                                                for q in qs], 5.0 * n),
+            ("torch zero fill f32", lambda: [o.zero_() for o in outs],
+             4.0 * n)):
+        ms, _ = kernel_ms(fn, 20)
+        b_ms = bound(nbytes, 0.0)[0]
+        parts.append(f"{what} {ms:.4f} ms, bound {b_ms:.4f} "
+                     f"({100 * b_ms / ms:.1f}%)")
+    say(f"decodes' large shapes {shapes}, one launch a leaf: "
+        + "; ".join(parts))
+
+
+def kernel_classes(torch, name, jobs, call, plan):
+    """Time the kernel wrapper ``call(*args)`` over the leaves ``jobs``
+    [(args, kept elements, bytes)] by class of leaf (``_leaf_class``), one
+    launch a leaf, one line a class with its leaves' rows, output columns
+    (the last operand's length: the kept or the expanded columns) and
+    launch plans (``plan(*args)``), against the bound of its bytes."""
     classes = {}
-    for x, idx in enc:
-        classes.setdefault(_encode_class(x, idx), []).append((x, idx))
+    for args, n, nb in jobs:
+        classes.setdefault(_leaf_class(n), []).append((args, nb))
     for cls in ("large", "middle", "small"):
-        jobs = classes.get(cls, [])
-        if not jobs:
+        leaves = classes.get(cls, [])
+        if not leaves:
             continue
-        ms, stream = kernel_ms(lambda: [encode(x, i) for x, i in jobs], 20)
-        b_ms = bound(sum(nbytes(x, i) for x, i in jobs), 0.0)[0]
-        how = sorted({plan(x.shape[0], i.shape[0], x.shape[1], x.data_ptr())
-                      for x, i in jobs})
-        say(f"{name} {cls} leaves: {len(jobs)}, rows "
-            f"{sorted({x.shape[0] for x, _ in jobs})}, B "
-            f"{sorted({i.shape[0] for _, i in jobs})}, plan (lanes, nv, "
-            f"vec, runs) {how}: kernel {ms:.4f} ms on the device "
+        ms, stream = kernel_ms(lambda: [call(*a) for a, _ in leaves], 20)
+        b_ms = bound(sum(nb for _, nb in leaves), 0.0)[0]
+        how = sorted({plan(*a) for a, _ in leaves})
+        say(f"{name} {cls} leaves: {len(leaves)}, rows "
+            f"{sorted({a[0].shape[0] for a, _ in leaves})}, out columns "
+            f"{sorted({a[-1].shape[0] for a, _ in leaves})}, plan (lanes, "
+            f"nv, vec, runs) {how}: kernel {ms:.4f} ms on the device "
             f"({stream:.4f} ms on the stream), bound {b_ms:.4f} ms "
             f"({100 * b_ms / ms:.1f}% of it reached)")
 
@@ -607,6 +699,22 @@ def encode_parts(torch, large):
         f"({100 * g_b / g_ms:.1f}%)")
 
 
+def decode_route(torch, name, shim, jobs) -> float:
+    """Time the zero-fill shim ``shim(payload, s, idx, full)`` (the codec
+    API's decode_expand route) over the leaves ``jobs`` once: the device
+    time of every launch it makes, summed, one item a kernel."""
+    def run():
+        return [shim(*j) for j in jobs]
+    split = kernel_split(run, 20)
+    ms = sum(v[0] for v in split.values())
+    say(f"{name} route, {len(jobs)} leaves: {ms:.4f} ms on the device in "
+        f"{sum(v[1] for v in split.values())} launches ({cuda_ms(run, 20):.4f}"
+        " ms on the stream): " + ", ".join(
+            f"{k} {v[0]:.4f} ms x {v[1]}"
+            for k, v in sorted(split.items(), key=lambda kv: -kv[1][0])))
+    return ms
+
+
 def check_q4_pack(torch, payload_shapes, lead, dev, label="resnet18"):
     """quantize_pack_q4 vs the plain version, bit for bit, on every
     compact payload leaf as the q4 ring views it, (lead * rows, C), in one
@@ -680,7 +788,10 @@ def check_q4(torch, views, dev):
     gather_quantize_q4 / unpack_gather_dequantize_q4: the codec API's
     encode_compact / decode_expand of ``views``
     (``shrinkage.compact_encode_views``), at a random kept set of whole
-    groups (timed) and of single columns."""
+    groups (timed) and of single columns; the decode on the four forms of
+    operand ``check_q8_gather`` names (p padded by a zero byte column, p
+    itself with index 2 Cp reading a zero nibble, no index, an arange),
+    timed on the shim's, and the shim's whole route once."""
     from repro_torch.kernels import ops, ref, wire
     gen = torch.Generator(device=dev).manual_seed(3)
     ops3 = _compact_operands(torch, views, gen, dev)
@@ -693,29 +804,51 @@ def check_q4(torch, views, dev):
     def note(name, e):
         err[name] = max(err[name], e)
 
-    dec = []
+    def same(out, plain, what):
+        torch.testing.assert_close(out, plain, rtol=0, atol=0,
+                                   equal_nan=True)
+        if out.dtype != plain.dtype:
+            raise AssertionError(f"unpack_gather_dequantize_q4 {what}: "
+                                 f"dtype {out.dtype} != {plain.dtype}")
+        note("unpack_gather_dequantize_q4", _abs_err(torch, out, plain))
+
+    def decodes(p, sc, idx, C):
+        """The decode of p on its four forms of operand, each bit-equal to
+        the plain version and the unpadded one to the padded one; returns
+        the unpadded form's operands and output."""
+        pp, inv = ref.expand_operands_q4(p, idx, C)
+        out = wire.unpack_gather_dequantize_q4(pp, sc, inv)
+        same(out, ref.unpack_gather_dequantize_q4_ref(pp, sc, inv), "padded")
+        inv0 = ref.inverse_index_q4(p, idx, C)
+        out0 = wire.unpack_gather_dequantize_q4(p, sc, inv0)
+        same(out0, ref.unpack_gather_dequantize_q4_ref(p, sc, inv0),
+             "unpadded")
+        same(out0, out, "unpadded vs padded")
+        same(ops.scatter_dequantize_q4(p, sc, idx, C), out, "shim")
+        n = idx.shape[0]
+        same(wire.unpack_dequantize_q4(p, sc, n),
+             ref.unpack_dequantize_q4_ref(p, sc, n), "identity")
+        ar = torch.arange(2 * p.shape[1], device=dev)
+        same(wire.unpack_gather_dequantize_q4(p, sc, ar),
+             ref.unpack_gather_dequantize_q4_ref(p, sc, ar), "arange")
+        return (pp, sc, inv), (p, sc, inv0), out0
+
+    dec, padded, route = [], [], []
     for k, (x, idx) in enumerate(enc + [(x, c) for x, _, c in ops3]):
         p, sc = wire.gather_quantize_q4(x, idx)
         note("gather_quantize_q4",
              _equal_q4(torch, (p, sc), ref.gather_quantize_q4_ref(x, idx),
                        f"gather_quantize_q4 {tuple(x.shape)}"))
         C = x.shape[1]
-        pp, inv = ref.expand_operands_q4(p, idx, C)
-        out = wire.unpack_gather_dequantize_q4(pp, sc, inv)
-        plain = ref.scatter_dequantize_q4_ref(p, sc, idx, C)
-        if not _same(torch, out, plain):
-            raise AssertionError(f"unpack_gather_dequantize_q4 "
-                                 f"{tuple(x.shape)} differs from the plain "
-                                 "version")
-        note("unpack_gather_dequantize_q4", _abs_err(torch, out, plain))
-        if not _same(torch, out, ops.scatter_dequantize_q4(p, sc, idx, C)):
-            raise AssertionError("scatter_dequantize_q4 shim differs")
+        pad_ops, ops0, out = decodes(p, sc, idx, C)
         kept = torch.abs(out[:, idx] - x[:, idx]).max().item()
         if kept > 0.5001 * sc.max().item() or out.abs().sum().item() == 0:
             raise AssertionError(f"q4 round trip error {kept} on "
                                  f"{tuple(x.shape)}")
         if k < len(enc):
-            dec.append((pp, sc, inv))
+            dec.append(ops0)
+            padded.append(pad_ops)
+            route.append((p, sc, idx, C))
     # odd C, 1-D leaves (one row), R not a multiple of the 8-row block,
     # and rows holding NaN or inf
     extra = [torch.randn(shp, generator=gen, device=dev)
@@ -731,16 +864,15 @@ def check_q4(torch, views, dev):
              _equal_q4(torch, wire.gather_quantize_q4(x, idx),
                        ref.gather_quantize_q4_ref(x, idx),
                        f"gather_quantize_q4 {tuple(x.shape)}"))
-        ar = torch.arange(C, device=dev)
-        out = wire.unpack_gather_dequantize_q4(p, sc, ar)
-        plain = ref.unpack_gather_dequantize_q4_ref(p, sc, ar)
-        torch.testing.assert_close(out, plain, rtol=0, atol=0,
-                                   equal_nan=True)
-        note("unpack_gather_dequantize_q4", _abs_err(torch, out, plain))
+        same(wire.unpack_dequantize_q4(p, sc, C),
+             ref.unpack_dequantize_q4_ref(p, sc, C), "identity")
+        decodes(*ref.gather_quantize_q4_ref(x, idx), idx, C)
     torch.cuda.synchronize()
     say(f"q4 check: gather_quantize_q4 and unpack_gather_dequantize_q4 on "
         f"{len(enc)} compacted leaves, kept sets of whole groups and of "
-        "single columns, bit-equal to the plain versions; odd-C, 1-D, "
+        "single columns, bit-equal to the plain versions; the decode "
+        "padded (the TPU kernel's operands), unpadded with the zero index "
+        "(the shim's), by no index and by an arange equal; odd-C, 1-D, "
         f"ragged-R and NaN/inf rows equal; max abs err {err}")
 
     def time_one(name, kern, plain, nbytes, nops, what):
@@ -763,20 +895,28 @@ def check_q4(torch, views, dev):
     r8 = sum(x.shape[0] for x, _ in enc)
     n9 = sum(pp.shape[0] * inv.shape[0] for pp, _, inv in dec)
     i9 = sum(inv.shape[0] for _, _, inv in dec)
-    return [
+    out = [
         time_one("gather_quantize_q4",
                  lambda: [wire.gather_quantize_q4(x, i) for x, i in enc],
                  lambda: [ref.gather_quantize_q4_ref(x, i) for x, i in enc],
                  sum(_q4_enc_bytes(x, i) for x, i in enc), 7.0 * nb,
                  f"{len(enc)} leaves, {nb} kept elements in whole groups"),
         time_one("unpack_gather_dequantize_q4",
-                 lambda: [wire.unpack_gather_dequantize_q4(pp, sc, inv)
-                          for pp, sc, inv in dec],
-                 lambda: [ref.unpack_gather_dequantize_q4_ref(pp, sc, inv)
-                          for pp, sc, inv in dec],
+                 lambda: [wire.unpack_gather_dequantize_q4(*a) for a in dec],
+                 lambda: [ref.unpack_gather_dequantize_q4_ref(*a)
+                          for a in dec],
                  float(p8) + 4.0 * r8 + 8.0 * i9 + 4.0 * n9, 3.0 * n9,
-                 f"{len(dec)} leaves expanded to {n9} elements"),
+                 f"{len(dec)} leaves expanded to {n9} elements, the "
+                 "shim's operands"),
     ]
+    p_ms, _ = kernel_ms(lambda: [wire.unpack_gather_dequantize_q4(*a)
+                                 for a in padded], 20)
+    say(f"unpack_gather_dequantize_q4: the same on p padded by a zero byte "
+        f"column (the TPU kernel's operands): kernel {p_ms:.4f} ms on the "
+        "device")
+    out[1]["route_ms"] = decode_route(torch, "scatter_dequantize_q4",
+                                      ops.scatter_dequantize_q4, route)
+    return out
 
 
 @contextlib.contextmanager
@@ -1054,8 +1194,13 @@ def check_q8_gather(torch, views, dev):
     """gather_quantize and gather_dequantize vs their plain versions, bit
     for bit, at the codec API's shapes (encode_compact / decode_expand of
     ``views``, ``shrinkage.compact_encode_views``, at kept sets of whole
-    groups and of single columns, and the plain decode), plus odd-C,
-    one-row, ragged-R and NaN/inf rows; timed at the whole groups."""
+    groups and of single columns), plus odd-C, one-row, ragged-R and
+    NaN/inf rows; the decode on four forms of operand: q padded by a zero
+    column with its inverse index (the TPU kernel's contract), q itself
+    with the inverse index whose dropped columns read column B as zeros
+    (the zero-fill shim's), the identity (no index) and an arange; timed
+    at the whole groups on the shim's form (the padded form's time
+    printed beside it), and the shim's whole route once."""
     from repro_torch.kernels import ops, ref, wire
     gen = torch.Generator(device=dev).manual_seed(6)
     ops3 = [(x, kept.to(torch.int32), cols.to(torch.int32))
@@ -1069,26 +1214,43 @@ def check_q8_gather(torch, views, dev):
             raise AssertionError(f"{name}: dtype {a.dtype} != {b.dtype}")
         err[name] = max(err[name], _abs_err(torch, a, b))
 
-    dec = []
+    def decodes(q, sc, idx, C):
+        """The decode of q (R, B) on its four forms of operand, each
+        bit-equal to the plain version and the unpadded one to the padded
+        one; returns the unpadded form's operands and output."""
+        pq, inv = ref.expand_operands(q, idx, C)
+        out = wire.gather_dequantize(pq, sc, inv)
+        note("gather_dequantize", out, ref.gather_dequantize_ref(pq, sc, inv))
+        inv0 = ref.inverse_index(idx, C)
+        out0 = wire.gather_dequantize(q, sc, inv0)
+        note("gather_dequantize", out0, ref.gather_dequantize_ref(q, sc, inv0))
+        note("gather_dequantize", out0, out)
+        note("gather_dequantize", ops.scatter_dequantize(q, sc, idx, C), out)
+        note("gather_dequantize", wire.dequantize_rows(q, sc),
+             ref.dequantize_rows_ref(q, sc))
+        ar = torch.arange(q.shape[1], device=dev, dtype=torch.int32)
+        note("gather_dequantize", wire.gather_dequantize(q, sc, ar),
+             ref.gather_dequantize_ref(q, sc, ar))
+        return (pq, sc, inv), (q, sc, inv0), out0
+
+    dec, padded, route = [], [], []
     for k, (x, idx) in enumerate(enc + [(x, c) for x, _, c in ops3]):
         q, sc = wire.gather_quantize(x, idx)
         qp, sp = ref.gather_quantize_ref(x, idx)
         note("gather_quantize", q, qp)
         note("gather_quantize", sc, sp)
         C = x.shape[1]
-        pq, inv = ref.expand_operands(q, idx, C)
-        out = wire.gather_dequantize(pq, sc, inv)
-        note("gather_dequantize", out, ref.gather_dequantize_ref(pq, sc, inv))
-        if not _same(torch, out, ops.scatter_dequantize(q, sc, idx, C)):
-            raise AssertionError("scatter_dequantize shim differs")
+        pad_ops, ops0, out = decodes(q, sc, idx, C)
         kept = (torch.abs(out[:, idx.long()] - x[:, idx.long()])
                 / sc).max().item()
         if kept > 0.5001 or out.abs().sum().item() == 0:
             raise AssertionError(f"q8 round trip {kept} quanta off on "
                                  f"{tuple(x.shape)}")
         if k < len(enc):
-            dec.append((pq, sc, inv))
-    # the plain decode, odd C, one row, C = 1, ragged R, NaN/inf rows
+            dec.append(ops0)
+            padded.append(pad_ops)
+            route.append((q, sc, idx.long(), C))   # the codec API's dtype
+    # odd C, one row, C = 1, ragged R, NaN/inf rows
     extra = [torch.randn(shp, generator=gen, device=dev)
              for shp in ((13, 33), (1, 9), (4, 1), (7, 257))]
     bad = torch.randn((13, 10), generator=gen, device=dev)
@@ -1101,17 +1263,14 @@ def check_q8_gather(torch, views, dev):
         qp, sp = ref.gather_quantize_ref(x, idx)
         note("gather_quantize", q, qp)
         note("gather_quantize", sc, sp)
-        ar = torch.arange(idx.shape[0], device=dev, dtype=torch.int32)
-        note("gather_dequantize", wire.gather_dequantize(q, sc, ar),
-             ref.gather_dequantize_ref(q, sc, ar))
-        note("gather_dequantize", ops.scatter_dequantize(q, sc, idx, C),
-             ref.scatter_dequantize_ref(q, sc, idx, C))
+        decodes(q, sc, idx, C)
     torch.cuda.synchronize()
     say(f"q8 gather check: gather_quantize and gather_dequantize on "
         f"{len(enc)} compacted leaves, kept sets of whole groups and of "
-        "single columns, bit-equal to the plain versions; the "
-        "plain dequantize, odd-C, one-row, C = 1, ragged-R and NaN/inf rows "
-        f"equal; max abs err {err}")
+        "single columns, bit-equal to the plain versions; the decode "
+        "padded (the TPU kernel's operands), unpadded with the zero index "
+        "(the shim's), by no index and by an arange equal; odd-C, one-row, "
+        f"C = 1, ragged-R and NaN/inf rows equal; max abs err {err}")
 
     def time_one(name, kern, plain, nbytes, nops, what):
         b_ms, b_by = bound(nbytes, nops)
@@ -1131,20 +1290,26 @@ def check_q8_gather(torch, views, dev):
     rows = sum(x.shape[0] for x, _ in enc)
     n9 = sum(pq.shape[0] * inv.shape[0] for pq, _, inv in dec)
     i9 = sum(inv.shape[0] for _, _, inv in dec)
-    return [
+    out = [
         time_one("gather_quantize",
                  lambda: [wire.gather_quantize(x, i) for x, i in enc],
                  lambda: [ref.gather_quantize_ref(x, i) for x, i in enc],
                  sum(_q8_enc_bytes(x, i) for x, i in enc), 7.0 * nb,
                  f"{len(enc)} leaves, {nb} kept elements in whole groups"),
         time_one("gather_dequantize",
-                 lambda: [wire.gather_dequantize(pq, sc, inv)
-                          for pq, sc, inv in dec],
-                 lambda: [ref.gather_dequantize_ref(pq, sc, inv)
-                          for pq, sc, inv in dec],
+                 lambda: [wire.gather_dequantize(*a) for a in dec],
+                 lambda: [ref.gather_dequantize_ref(*a) for a in dec],
                  float(nb) + 4.0 * rows + 4.0 * i9 + 4.0 * n9, 2.0 * n9,
-                 f"{len(dec)} leaves expanded to {n9} elements"),
+                 f"{len(dec)} leaves expanded to {n9} elements, the "
+                 "shim's operands"),
     ]
+    p_ms, _ = kernel_ms(lambda: [wire.gather_dequantize(*a)
+                                 for a in padded], 20)
+    say(f"gather_dequantize: the same on q padded by a zero column (the TPU "
+        f"kernel's operands): kernel {p_ms:.4f} ms on the device")
+    out[1]["route_ms"] = decode_route(torch, "scatter_dequantize",
+                                      ops.scatter_dequantize, route)
+    return out
 
 
 def _einsum(torch, v):
@@ -1784,6 +1949,10 @@ def codec_api(torch, state, plan):
     for name in ("gather_quantize_q4", "unpack_gather_dequantize_q4"):
         if counts[name] == 0:
             raise AssertionError(f"the codec API launched no {name}")
+    if counts["unpack_gather_dequantize_q4"] != len(jobs):
+        raise AssertionError(f"{len(jobs)} decoded leaves took "
+                             f"{counts['unpack_gather_dequantize_q4']} "
+                             "unpack launches, not one each")
     return counts
 
 
@@ -1868,6 +2037,10 @@ def codec_api_dense_q8(torch, state, plan):
     for name in ("gather_groups", "gather_quantize", "gather_dequantize"):
         if counts[name] == 0:
             raise AssertionError(f"the codec API launched no {name}")
+    if counts["gather_dequantize"] != len(jobs):
+        raise AssertionError(f"{len(jobs)} q8-decoded leaves took "
+                             f"{counts['gather_dequantize']} decode "
+                             "launches, not one each")
     return counts
 
 
@@ -2205,7 +2378,7 @@ def wire_phase(torch, dev):
     payload views only: Mamba2 runs no q4 wire); and the codec API's
     fused encodes and decodes (gather_quantize_q4, gather_quantize and
     their decodes) at ResNet's 60 compacted leaves, then the encodes alone
-    (``encode_study``)."""
+    (``codec_study``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.masks import MaskSyncConfig, budget
     from repro_torch.core.shrinkage import (compact_encode_views,
@@ -2229,7 +2402,7 @@ def wire_phase(torch, dev):
                     + check_q4(torch, views, dev) \
                     + check_q8_gather(torch, views, dev):
                 kernels.append(dict(k, operands=label))
-            encode_study(torch, views, dev)
+            codec_study(torch, views, dev)
         gathers, norms = round_operands(torch, bundle, lead, dev)
         for k in check_gather(torch, gathers, dev, label):
             kernels.append(dict(k, operands=label))

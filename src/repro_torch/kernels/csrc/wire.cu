@@ -112,6 +112,30 @@ struct Dense {
 // are one run from a multiple of 4 take one 16-byte load of x where
 // ``runs`` allows it (the host plan: C % 4 == 0 and x 16-byte aligned,
 // so every row is); other columns take one load each.
+// The source columns c[0..V) of output vector j, columns V j .. V j + V -
+// 1 of ``cols``: staged in shared memory as int32 (S; V 4 reads its four
+// with one 16-byte load) or in device memory as the caller typed them (I).
+template <int V, class I, bool S>
+__device__ __forceinline__ void kept_cols(const I* cols, int64_t j,
+                                          int64_t (&c)[V]) {
+  if constexpr (S && V == 4) {
+    const int4 t = *reinterpret_cast<const int4*>(cols + 4 * j);
+    c[0] = t.x, c[1] = t.y, c[2] = t.z, c[3] = t.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      if constexpr (S) c[k] = cols[V * j + k];
+      else c[k] = __ldg(cols + V * j + k);
+    }
+  }
+}
+
+// four columns that are one run from a multiple of 4
+__device__ __forceinline__ bool aligned_run(const int64_t (&c)[4]) {
+  return (c[0] & 3) == 0 && c[1] == c[0] + 1 && c[2] == c[0] + 2 &&
+         c[3] == c[0] + 3;
+}
+
 template <class I, bool S>
 struct Kept {
   static_assert(!S || sizeof(I) == 4, "staged columns are int32");
@@ -131,15 +155,8 @@ struct Kept {
                                        float (&v)[W]) const {
     if constexpr (V == 4) {
       int64_t c[4];
-      if constexpr (S) {
-        const int4 t = *reinterpret_cast<const int4*>(cols + 4 * j);
-        c[0] = t.x, c[1] = t.y, c[2] = t.z, c[3] = t.w;
-      } else {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) c[k] = col(4 * j + k);
-      }
-      if (runs && (c[0] & 3) == 0 && c[1] == c[0] + 1 && c[2] == c[0] + 2 &&
-          c[3] == c[0] + 3) {
+      kept_cols<4, I, S>(cols, j, c);
+      if (runs && aligned_run(c)) {
         const float4 t = __ldg(reinterpret_cast<const float4*>(xr + c[0]));
         v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
       } else {
@@ -367,29 +384,6 @@ int launch_q8(const float* x, const int32_t* idx, int8_t* q, float* s,
   return (int)cudaGetLastError();
 }
 
-// Replaces gather_dequantize of src/repro/kernels/wire.py: q (R, Cq) int8,
-// s (R, 1) f32, idx (Cout,) int32 in [0, Cq) -> out (R, Cout) f32 =
-// q[r, idx[j]] * s[r].  With idx = arange(Cq) it is the plain dequantize;
-// with the inverse index of a compact encode into q padded by one zero
-// column, every dropped column reads the zero, which is the zero-fill
-// expansion without a scatter (a NaN or inf scale makes it NaN there, as
-// in the reference).  Bytes bound (one byte read and 4 B written per
-// element); one warp per row, the scale loaded once per row.
-__global__ void gather_dequantize_kernel(const int8_t* __restrict__ q,
-                                         const float* __restrict__ s,
-                                         const int32_t* __restrict__ idx,
-                                         float* __restrict__ out, int64_t R,
-                                         int64_t Cq, int64_t Cout) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= R) return;
-  const int8_t* qr = q + row * Cq;
-  const float sc = __ldg(s + row);
-  float* orow = out + row * Cout;
-  for (int64_t j = lane; j < Cout; j += 32)
-    orow[j] = __fmul_rn((float)__ldg(qr + __ldg(idx + j)), sc);
-}
-
 // ---------------------------------------------------------------------------
 // q4: two's-complement nibbles in [-7, 7], two columns per byte (the even
 // column in the low nibble), one f32 scale max|row| / 7 + 1e-30 per row.
@@ -596,31 +590,340 @@ __global__ void __launch_bounds__(256)
   else q4_leaf<2>(f, ld, blockIdx.x, warp_max);
 }
 
-// Replaces unpack_gather_dequantize_q4 of src/repro/kernels/wire.py: p (R,
-// Cp) uint8, s (R, 1), idx (Cout,) int64 into the unpacked channel space
-// [0, 2*Cp) -> out (R, Cout) f32 = sign-extended nibble idx[j] of the row
-// times its scale.  Output column j reads byte idx[j] >> 1, nibble
-// idx[j] & 1.  With idx = arange(n) it is the plain decode (the pad nibble
-// is never read); with the inverse index of a compact encode into p padded
-// by one zero byte column, every dropped column reads a zero nibble of the
-// pad byte, which is the zero-fill expansion without a scatter.  Bytes
-// bound (half a byte read and 4 B written per element); one warp per row,
-// eight rows per block, the scale loaded once per row.
-__global__ void unpack_gather_dequantize_q4_kernel(
-    const uint8_t* __restrict__ p, const float* __restrict__ s,
-    const int64_t* __restrict__ idx, float* __restrict__ out, int64_t R,
-    int64_t Cp, int64_t Cout) {
+// ---------------------------------------------------------------------------
+// The decodes.  gather_dequantize replaces gather_dequantize of
+// src/repro/kernels/wire.py: q (R, Cq) int8, s (R, 1) f32, idx (Cout,)
+// int32 -> out (R, Cout) f32 = q[r, idx[j]] * s[r].
+// unpack_gather_dequantize_q4 replaces unpack_gather_dequantize_q4 there:
+// p (R, Cp) uint8, idx (Cout,) int64 into the unpacked columns [0, 2 Cp)
+// -> out (R, Cout) f32 = the sign-extended nibble idx[j] of row r (byte
+// idx[j] >> 1, the low nibble for an even column) times s[r].
+//
+// Both take one more index value than the TPU kernels: Cq (q8) or 2 Cp
+// (q4) reads nothing and writes 0 * s[r] (NaN on a row whose scale is NaN
+// or inf, as the reference's zero pad column gives).  So the zero-fill
+// expansion of a compact payload is a decode by the inverse index of the
+// compaction, without a padded copy of the payload.  A null idx is the
+// identity, the plain decode: column j reads column j, and no index is
+// read.
+//
+// Bound on an H100: bytes.  The f32 output is over 80% of them (4 B
+// written an element, against 1 B (q8) or half a byte (q4) read).  The
+// codec API decodes one leaf a launch, and most of ResNet's leaves are so
+// small that the launch and its chain of dependent loads set the time, so
+// the design shortens that chain and keeps the stores streaming:
+//   * the quantizers' row plan over the Cout output columns
+//     (kernels/wire.py: gather_dequantize_plan and its q4 twin): L lanes
+//     a row (256 / L rows a block) and up to 6 vectors a lane, so a narrow
+//     row leaves no lane idle and a wide one spreads over several warps;
+//     rows past 6 vectors a lane at 256 lanes stream, one warp a row;
+//   * the index staged once a block in shared memory as int32 (every row
+//     of the block shares it); where a row's payload is no wider than its
+//     output (an expansion reads all of it) and its width and base allow
+//     4-byte loads, the block's payload rows, which lie contiguous in
+//     memory, are staged beside it with 16- or 4-byte loads issued
+//     together with the index's and the rows' scales, so no load waits on
+//     another: one round trip to device memory, one barrier (other rows,
+//     such as the TPU kernel's zero-padded ones, are read in place);
+//   * four columns that are one run from a multiple of 4 read their
+//     payload with one load, 4 bytes of q or 2 of p, as the device decides
+//     from the index (the host plan says only whether the rows' width and
+//     base allow it: ``runs``).  The rules keep whole groups (ResNet: 8
+//     channels), so every kept vector of an expansion is such a run, and
+//     a dropped one reads nothing;
+//   * vectors of four output columns stored with one float4 where Cout %
+//     4 == 0 and out is 16-byte aligned, else single columns; streaming
+//     stores (st.global.cs: the output is not read again here), all of a
+//     lane's loads, its row's scale first, issued before its first store.
+// The arithmetic is the plain version's: (float)q * s rounded once
+// (__fmul_rn), the nibble sign-extended as (n ^ 8) - 8, so the result is
+// bit-equal to it.
+// ---------------------------------------------------------------------------
+
+// A load of read-only data: from device memory through the read-only
+// path, or (S) from shared memory.
+template <bool S, class T>
+__device__ __forceinline__ T load_ro(const T* p) {
+  if constexpr (S) return *p;
+  else return __ldg(p);
+}
+
+// A decode's payload: a row's column c as a code (q8: its byte; q4: its
+// nibble), four codes from a multiple of 4 in one load, and a code's
+// value.  A vector's codes are packed in one 32-bit word, kBits each.  S:
+// the rows were staged in shared memory.
+struct Q8Codes {
+  using T = int8_t;
+  static constexpr int kBits = 8;
+  const T* p;
+  int64_t ld;     // bytes a row: Cq
+  int64_t zero;   // the index that writes 0 * s: Cq
+  template <bool S>
+  __device__ __forceinline__ uint32_t one(const T* pr, int64_t c) const {
+    return (uint8_t)load_ro<S>(pr + c);
+  }
+  template <bool S>
+  __device__ __forceinline__ uint32_t four(const T* pr, int64_t c) const {
+    return load_ro<S>(reinterpret_cast<const unsigned int*>(pr + c));
+  }
+  __device__ __forceinline__ static float value(uint32_t w, int k) {
+    return (float)(int8_t)(uint8_t)(w >> (8 * k));
+  }
+};
+
+struct Q4Codes {
+  using T = uint8_t;
+  static constexpr int kBits = 4;
+  const T* p;
+  int64_t ld;     // bytes a row: Cp
+  int64_t zero;   // 2 Cp
+  template <bool S>
+  __device__ __forceinline__ uint32_t one(const T* pr, int64_t c) const {
+    return ((uint32_t)load_ro<S>(pr + (c >> 1)) >> ((c & 1) << 2)) & 0xFu;
+  }
+  template <bool S>
+  __device__ __forceinline__ uint32_t four(const T* pr, int64_t c) const {
+    return load_ro<S>(reinterpret_cast<const unsigned short*>(pr + (c >> 1)));
+  }
+  __device__ __forceinline__ static float value(uint32_t w, int k) {
+    const int n = (int)((w >> (4 * k)) & 0xFu);
+    return (float)((n ^ 8) - 8);
+  }
+};
+
+// A decode's source columns: Ident (column c reads column c) or Index
+// (column cols[c], staged in shared memory or read from device memory).
+struct Ident {
+  template <int V>
+  __device__ __forceinline__ void get(int64_t j, int64_t (&c)[V]) const {
+#pragma unroll
+    for (int k = 0; k < V; ++k) c[k] = V * j + k;
+  }
+};
+
+template <class I, bool S>
+struct Index {
+  const I* cols;
+  template <int V>
+  __device__ __forceinline__ void get(int64_t j, int64_t (&c)[V]) const {
+    kept_cols<V, I, S>(cols, j, c);
+  }
+};
+
+// The codes of output vector j of a row (columns V j .. V j + V - 1) from
+// payload row pr (S: in shared memory): one load where they are one run
+// from a multiple of 4 and ``runs`` allows it, else one load a column; a
+// column at the zero index (or past it) packs 0 and reads nothing.
+template <int V, bool S, class P, class Src>
+__device__ __forceinline__ uint32_t dec_codes(const P& pay,
+                                              const typename P::T* pr,
+                                              const Src& src, int64_t j,
+                                              int runs) {
+  int64_t c[V];
+  src.template get<V>(j, c);
+  if constexpr (V == 4) {
+    if (runs && aligned_run(c) && (uint64_t)c[3] < (uint64_t)pay.zero)
+      return pay.template four<S>(pr, c[0]);
+  }
+  uint32_t w = 0;
+#pragma unroll
+  for (int k = 0; k < V; ++k)
+    if ((uint64_t)c[k] < (uint64_t)pay.zero)
+      w |= pay.template one<S>(pr, c[k]) << (P::kBits * k);
+  return w;
+}
+
+template <int V, class P>
+__device__ __forceinline__ void dec_store(float* orow, int64_t j, uint32_t w,
+                                          float sc) {
+  if constexpr (V == 4) {
+    __stcs(reinterpret_cast<float4*>(orow + 4 * j),
+           make_float4(__fmul_rn(P::value(w, 0), sc),
+                       __fmul_rn(P::value(w, 1), sc),
+                       __fmul_rn(P::value(w, 2), sc),
+                       __fmul_rn(P::value(w, 3), sc)));
+  } else {
+    __stcs(orow + j, __fmul_rn(P::value(w, 0), sc));
+  }
+}
+
+// Row ``row`` of n output columns, scale sc, on the row plan (lane
+// ``sub`` of L taking the row's vectors sub, sub + L, ...: NV at most)
+// from payload row pr (S: in shared memory); every load before the first
+// store.
+template <int NV, int V, bool S, class P, class Src>
+__device__ __forceinline__ void dec_row(const P& pay, const typename P::T* pr,
+                                        const Src& src, float sc,
+                                        float* __restrict__ out, int64_t row,
+                                        int64_t n, int sub, int L, int runs) {
+  const int64_t nvec = n / V;
+  uint32_t w[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int64_t j = sub + (int64_t)i * L;
+    w[i] = j < nvec ? dec_codes<V, S>(pay, pr, src, j, runs) : 0u;
+  }
+  float* orow = out + row * n;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int64_t j = sub + (int64_t)i * L;
+    if (j < nvec) dec_store<V, P>(orow, j, w[i], sc);
+  }
+}
+
+// Copy ``count`` units of W from src to dst (shared memory), and the
+// index's first n entries as int32 to cols, each thread's loads of both
+// issued before its stores.  Every thread of the block reaches the
+// barrier.
+template <class W, class I>
+__device__ __forceinline__ void stage(const W* __restrict__ src, W* dst,
+                                      int64_t count,
+                                      const I* __restrict__ idx,
+                                      int32_t* cols, int64_t n) {
+  const int64_t m = count > n ? count : n;
+  for (int64_t k = threadIdx.x; k < m; k += blockDim.x) {
+    W a{};
+    I b{};
+    if (k < count) a = __ldg(src + k);
+    if (k < n) b = __ldg(idx + k);
+    if (k < count) dst[k] = a;
+    if (k < n) cols[k] = (int32_t)b;
+  }
+  __syncthreads();
+}
+
+// One block's rows on the row plan, each row's scale loaded first.  idx
+// null: the identity, nothing staged.  Else the index is staged, and with
+// it (unit 16 or 4: the width of the copy the rows' width and base allow;
+// 0: none) the block's payload rows, which are then read from shared
+// memory.
+template <int NV, int V, class P, class I>
+__global__ void __launch_bounds__(256)
+    decode_kernel(const P pay, const float* __restrict__ s,
+                  const I* __restrict__ idx, float* __restrict__ out,
+                  int64_t R, int64_t n, int L, int runs, int unit) {
+  const int sub = threadIdx.x & (L - 1);
+  const int64_t per = blockDim.x / L;   // rows a block
+  const int64_t r0 = (int64_t)blockIdx.x * per;
+  const int64_t row = r0 + threadIdx.x / L;
+  const float sc = __ldg(s + (row < R ? row : R - 1));
+  if (idx == nullptr) {   // uniform: the identity stages nothing
+    if (row < R)
+      dec_row<NV, V, false>(pay, pay.p + row * pay.ld, Ident{}, sc, out, row,
+                            n, sub, L, runs);
+    return;
+  }
+  extern __shared__ __align__(16) int32_t dec_smem[];
+  // the index first (n int32, padded to 16 bytes), then the payload rows
+  int32_t* cols = dec_smem;
+  auto* rows = reinterpret_cast<typename P::T*>(dec_smem + ((n + 3) & ~3));
+  const int64_t nrows = R - r0 < per ? R - r0 : per;
+  const int64_t bytes = nrows * pay.ld * (int64_t)sizeof(typename P::T);
+  const auto* src = pay.p + r0 * pay.ld;
+  if (unit == 16)
+    stage(reinterpret_cast<const uint4*>(src), reinterpret_cast<uint4*>(rows),
+          bytes / 16, idx, cols, n);
+  else   // unit 4, or 0: the index alone
+    stage(reinterpret_cast<const uint32_t*>(src),
+          reinterpret_cast<uint32_t*>(rows), unit ? bytes / 4 : 0, idx, cols,
+          n);
+  if (row >= R) return;
+  const Index<int32_t, true> at{cols};
+  if (unit)
+    dec_row<NV, V, true>(pay, rows + (row - r0) * pay.ld, at, sc, out, row, n,
+                         sub, L, runs);
+  else
+    dec_row<NV, V, false>(pay, pay.p + row * pay.ld, at, sc, out, row, n, sub,
+                          L, runs);
+}
+
+// Rows wider than the plan holds: one warp a row, eight rows a block, four
+// vectors of a lane in flight at a time; the index read from device
+// memory.
+template <int V, class P, class Src>
+__device__ __forceinline__ void dec_stream(const P& pay, const Src& src,
+                                           const float* __restrict__ s,
+                                           float* __restrict__ out, int64_t R,
+                                           int64_t n, int runs) {
   const int lane = threadIdx.x & 31;
   const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (row >= R) return;
-  const uint8_t* pr = p + row * Cp;
+  const int64_t nvec = n / V;
+  const typename P::T* pr = pay.p + row * pay.ld;
   const float sc = __ldg(s + row);
-  float* orow = out + row * Cout;
-  for (int64_t j = lane; j < Cout; j += 32) {
-    const int64_t i = __ldg(idx + j);
-    const int n = (__ldg(pr + (i >> 1)) >> ((i & 1) << 2)) & 0xF;
-    orow[j] = __fmul_rn((float)((n ^ 8) - 8), sc);
+  float* orow = out + row * n;
+  int64_t j = lane;
+  for (; j + 96 < nvec; j += 128) {
+    uint32_t w[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      w[u] = dec_codes<V, false>(pay, pr, src, j + 32 * u, runs);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) dec_store<V, P>(orow, j + 32 * u, w[u], sc);
   }
+  for (; j < nvec; j += 32)
+    dec_store<V, P>(orow, j, dec_codes<V, false>(pay, pr, src, j, runs), sc);
+}
+
+template <int V, class P, class I>
+__global__ void __launch_bounds__(256)
+    decode_kernel_stream(const P pay, const float* __restrict__ s,
+                         const I* __restrict__ idx, float* __restrict__ out,
+                         int64_t R, int64_t n, int runs) {
+  if (idx == nullptr)
+    dec_stream<V>(pay, Ident{}, s, out, R, n, runs);
+  else
+    dec_stream<V>(pay, Index<I, false>{idx}, s, out, R, n, runs);
+}
+
+// One launch of a decode over n output columns, with the plan the host
+// chose (nv 0 streams); an identity wider than the payload, or payload
+// rows too wide to stage, are refused.
+template <class P, class I>
+int launch_decode(const P& pay, const float* s, const I* idx, float* out,
+                  int64_t R, int64_t n, int lanes, int nv, int vec, int runs,
+                  int unit, cudaStream_t st) {
+  if (R <= 0 || n <= 0) return (int)cudaSuccess;
+  const int64_t row_bytes = pay.ld * (int64_t)sizeof(typename P::T);
+  if (!plan_ok(lanes, nv) || (vec != 4 && vec != 1) || (vec == 4 && n % 4) ||
+      (idx && nv && n > kStagedCols) || (!idx && n > pay.zero) ||
+      (unit != 0 && unit != 4 && unit != 16) ||
+      (unit && (!idx || !nv || row_bytes % unit || row_bytes > n)))
+    return (int)cudaErrorInvalidValue;
+  const int64_t grid = nv == 0 ? (R + 7) / 8 : (R * lanes + 255) / 256;
+  if (grid >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)grid;
+  if (vec != 4) runs = 0;
+  if (nv == 0) {
+    if (vec == 4)
+      decode_kernel_stream<4><<<blocks, 256, 0, st>>>(pay, s, idx, out, R, n,
+                                                     runs);
+    else
+      decode_kernel_stream<1><<<blocks, 256, 0, st>>>(pay, s, idx, out, R, n,
+                                                     runs);
+    return (int)cudaGetLastError();
+  }
+  // the index (int32, padded to 16 bytes: at most 24 KB) and, staged, the
+  // block's 256 / L payload rows of at most n bytes each (the plan covers
+  // a row with L lanes of at most 6 vectors of 4: at most 6 KB)
+  const size_t smem =
+      idx ? (size_t)((n + 3) & ~3) * sizeof(int32_t) +
+                (unit ? (size_t)(256 / lanes) * row_bytes : 0)
+          : 0;
+  switch (nv) {
+#define DECODE(N)                                                          \
+  case N:                                                                  \
+    if (vec == 4)                                                          \
+      decode_kernel<N, 4><<<blocks, 256, smem, st>>>(pay, s, idx, out, R, \
+                                                     n, lanes, runs, unit); \
+    else                                                                   \
+      decode_kernel<N, 1><<<blocks, 256, smem, st>>>(pay, s, idx, out, R, \
+                                                     n, lanes, runs, unit); \
+    break;
+    DECODE(1) DECODE(2) DECODE(3) DECODE(4) DECODE(6)
+#undef DECODE
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -657,16 +960,6 @@ int gather_quantize_f32(const float* x, const int32_t* idx, int8_t* q,
                                  lanes, nv, runs, st)
                   : launch_q8<1>(x, idx, q, s, R, C, B, (float)levels,
                                  lanes, nv, 0, st);
-}
-
-int gather_dequantize_f32(const int8_t* q, const float* s, const int32_t* idx,
-                          float* out, int64_t R, int64_t Cq, int64_t Cout,
-                          void* stream) {
-  if (R <= 0 || Cout <= 0) return (int)cudaSuccess;
-  gather_dequantize_kernel<<<row_blocks(R), 32 * kRowsPerBlock, 0,
-                             (cudaStream_t)stream>>>(q, s, idx, out, R, Cq,
-                                                     Cout);
-  return (int)cudaGetLastError();
 }
 
 // ``n`` leaves (1..kQ4Cap) of kQ4Fields int64 each, as kernels/wire.py:
@@ -716,15 +1009,32 @@ int gather_quantize_q4_f32(const float* x, const int64_t* idx, uint8_t* p,
   return (int)cudaGetLastError();
 }
 
+// The decodes (see decode_kernel): lanes and nv as for quantize_rows_f32,
+// over the Cout output columns; vec 4 (float4 stores: Cout % 4 == 0 and
+// out 16-byte aligned) or 1; runs 1 lets four columns that are one run
+// from a multiple of 4 take one load of the payload rows as the kernel
+// reads them: 4 bytes of q (Cq % 4 == 0 and, unstaged, q 4-byte aligned)
+// or 2 bytes of p (Cp % 2 == 0, p 2-byte aligned); unit 16 or 4 stages a
+// block's payload rows (no wider than Cout bytes) with loads of that
+// width, 0 reads them in place; as kernels/wire.py: gather_dequantize_plan
+// and unpack_gather_dequantize_q4_plan choose them.  idx in [0, Cq] (q8)
+// or [0, 2 Cp] (q4), the last value writing 0 * s; a null idx is the
+// identity over the first Cout columns (unit 0).
+int gather_dequantize_f32(const int8_t* q, const float* s, const int32_t* idx,
+                          float* out, int64_t R, int64_t Cq, int64_t Cout,
+                          int lanes, int nv, int vec, int runs, int unit,
+                          void* stream) {
+  return launch_decode(Q8Codes{q, Cq, Cq}, s, idx, out, R, Cout, lanes, nv,
+                       vec, runs, unit, (cudaStream_t)stream);
+}
+
 int unpack_gather_dequantize_q4_f32(const uint8_t* p, const float* s,
                                     const int64_t* idx, float* out,
                                     int64_t R, int64_t Cp, int64_t Cout,
-                                    void* stream) {
-  if (R <= 0 || Cout <= 0) return (int)cudaSuccess;
-  unpack_gather_dequantize_q4_kernel<<<row_blocks(R), 32 * kRowsPerBlock, 0,
-                                       (cudaStream_t)stream>>>(
-      p, s, idx, out, R, Cp, Cout);
-  return (int)cudaGetLastError();
+                                    int lanes, int nv, int vec, int runs,
+                                    int unit, void* stream) {
+  return launch_decode(Q4Codes{p, Cp, 2 * Cp}, s, idx, out, R, Cout, lanes,
+                       nv, vec, runs, unit, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -140,18 +140,15 @@ def quantize_pack_q4_leaves(xs):
     return out
 
 
-def _arange_idx(n: int, device):
-    return torch.arange(n, dtype=torch.int64, device=device)
-
-
 def unpack_dequantize_q4(p, scale, n: int):
     """Inverse of :func:`quantize_pack_q4`: packed (..., Cp) -> f32
-    (..., n), trimming the pad nibble (``n`` = true minor dim)."""
+    (..., n), trimming the pad nibble (``n`` = true minor dim): the unpack
+    kernel without an index."""
     shape = tuple(p.shape)
     Cp = shape[-1] if shape else 1
     R = math.prod(shape[:-1]) if len(shape) >= 2 else 1
-    out = _wire.unpack_gather_dequantize_q4(
-        _view2d(p, R, Cp), _view2d(scale, R, 1), _arange_idx(n, p.device))
+    out = _wire.unpack_dequantize_q4(_view2d(p, R, Cp),
+                                     _view2d(scale, R, 1), n)
     return out.view((shape[:-1] if len(shape) >= 2 else ()) + (n,))
 
 
@@ -163,11 +160,12 @@ def gather_quantize_q4(x, idx):
 
 
 def scatter_dequantize_q4(p, scale, idx, full: int):
-    """Fused q4 unpack + dequantize + zero-fill expansion -> (R, full),
-    through the operands of :func:`ref.expand_operands_q4`."""
-    pp, inv = _ref.expand_operands_q4(p, idx, full)
+    """Fused q4 unpack + dequantize + zero-fill expansion -> (R, full):
+    the unpack kernel on p itself by :func:`ref.inverse_index_q4`, whose
+    dropped channels read nibble 2*Cp as zeros (no padded copy)."""
     return _wire.unpack_gather_dequantize_q4(
-        pp, _view2d(scale, p.shape[0], 1), inv)
+        p.contiguous(), _view2d(scale, p.shape[0], 1),
+        _ref.inverse_index_q4(p, idx, full))
 
 
 # ------------------------------------------------------------------ #
@@ -235,12 +233,11 @@ def expand_groups(c, idx, full: int):
 
 def dequantize_rows(q, scale):
     """Inverse of :func:`quantize_rows` (f32 out, caller casts): the
-    gather+dequantize kernel with the identity index."""
+    gather+dequantize kernel without an index."""
     shape = tuple(q.shape)
     R, C = _rc(shape)
-    out = _wire.gather_dequantize(
-        _view2d(q, R, C), _view2d(scale.to(torch.float32), R, 1),
-        torch.arange(C, dtype=torch.int32, device=q.device))
+    out = _wire.dequantize_rows(_view2d(q, R, C),
+                                _view2d(scale.to(torch.float32), R, 1))
     return out.view(shape)
 
 
@@ -253,11 +250,12 @@ def gather_quantize(x, idx, levels: int = 127):
 
 def scatter_dequantize(q, scale, idx, full: int):
     """Fused dequantize + zero-fill expansion: q (R, B) int8 of the kept
-    channels ``idx`` -> f32 (R, full), zeros on the dropped channels,
-    through the operands of :func:`ref.expand_operands`."""
-    qp, inv = _ref.expand_operands(q, idx, full)
+    channels ``idx`` -> f32 (R, full), zeros on the dropped channels: the
+    kernel on q itself by :func:`ref.inverse_index`, whose dropped
+    channels read column B as zeros (no padded copy)."""
     return _wire.gather_dequantize(
-        qp, scale.to(torch.float32).reshape(-1, 1).contiguous(), inv)
+        q.contiguous(), scale.to(torch.float32).reshape(-1, 1).contiguous(),
+        _ref.inverse_index(idx, full))
 
 
 # ------------------------------------------------------------------ #

@@ -63,20 +63,29 @@ def gather_quantize_ref(x, idx, levels=127):
 
 
 def gather_dequantize_ref(q, s, idx):
-    """q: (R, Cq) int8, s: (R, 1), idx: (Cout,) -> f32 (R, Cout) =
-    ``q[:, idx] * s``."""
-    return torch.index_select(q, 1, idx.long()).to(torch.float32) * s
+    """q: (R, Cq) int8, s: (R, 1), idx: (Cout,) in [0, Cq] -> f32 (R,
+    Cout) = ``q[:, idx] * s``, index Cq reading a zero column (``0 * s``:
+    NaN on a row whose scale is NaN or inf), so q needs no padded copy
+    for the zero-fill expansion; it reads q padded by that column."""
+    qp = F.pad(q, (0, 1))
+    return torch.index_select(qp, 1, idx.long()).to(torch.float32) * s
 
 
-def inverse_index(idx, full):
-    """(..., B) kept indices -> (..., full) int32 positions into the
-    compact buffer padded by one zero slot: position ``idx[b]`` holds b,
-    every dropped position B (the pad)."""
+def dequantize_rows_ref(q, s):
+    """q: (R, C) int8, s: (R, 1) -> f32 ``q * s``: the decode with the
+    identity index."""
+    return q.to(torch.float32) * s
+
+
+def inverse_index(idx, full, fill=None, dtype=torch.int32):
+    """(..., B) kept indices -> (..., full) positions into the compact
+    buffer: position ``idx[b]`` holds b, every dropped position ``fill``
+    (default B: the zero slot past the compact buffer)."""
     B = idx.shape[-1]
-    inv = torch.full(idx.shape[:-1] + (full,), B, dtype=torch.int32,
-                     device=idx.device)
-    src = torch.arange(B, dtype=torch.int32, device=idx.device)
-    return inv.scatter(-1, idx.long(), src.expand(idx.shape))
+    inv = torch.full(idx.shape[:-1] + (full,), B if fill is None else fill,
+                     dtype=dtype, device=idx.device)
+    src = torch.arange(B, dtype=dtype, device=idx.device)
+    return inv.scatter_(-1, idx.long(), src.expand(idx.shape))
 
 
 def expand_operands(c, idx, full):
@@ -91,8 +100,7 @@ def scatter_dequantize_ref(q, s, idx, full):
     """Inverse of :func:`gather_quantize_ref`: q (R, B), s (R, 1), idx
     (B,) -> f32 (R, full), channel ``idx[b]`` = q[:, b] * s, the dropped
     channels 0 (NaN on a row whose scale is NaN or inf)."""
-    qp, inv = expand_operands(q, idx, full)
-    return gather_dequantize_ref(qp, s, inv)
+    return gather_dequantize_ref(q, s, inverse_index(idx, full))
 
 
 def group_norms_sq_ref(x):
@@ -108,7 +116,7 @@ def pack_q4_ref(q):
     n gets one zero pad nibble."""
     q = q.to(torch.int32) & 0xF
     if q.shape[1] % 2:
-        q = torch.nn.functional.pad(q, (0, 1))
+        q = F.pad(q, (0, 1))
     q = q.reshape(q.shape[0], -1, 2)
     return (q[..., 0] | (q[..., 1] << 4)).to(torch.uint8)
 
@@ -140,31 +148,42 @@ def gather_quantize_q4_ref(x, idx):
 
 def unpack_gather_dequantize_q4_ref(p, s, idx):
     """p: (R, Cp) packed uint8, s: (R, 1), idx: (Cout,) into the UNPACKED
-    channel space [0, 2*Cp) -> f32 (R, Cout) = nibble[:, idx] * s."""
-    q = unpack_q4_ref(p, 2 * p.shape[1])
+    channel space [0, 2*Cp] -> f32 (R, Cout) = nibble[:, idx] * s, index
+    2*Cp reading a zero nibble (the first of a zero pad byte)."""
+    q = F.pad(unpack_q4_ref(p, 2 * p.shape[1]), (0, 1))
     return torch.index_select(q, 1, idx).to(torch.float32) * s
+
+
+def unpack_dequantize_q4_ref(p, s, n):
+    """p: (R, Cp) packed uint8, s: (R, 1) -> f32 (R, n): the first n
+    nibbles of each row times its scale (the decode with the identity
+    index)."""
+    return unpack_q4_ref(p, n).to(torch.float32) * s
+
+
+def inverse_index_q4(p, idx, full):
+    """The inverse index (full,) int64 of a compact q4 payload p (R, Cp)
+    with kept channels idx (B,): channel ``idx[b]`` reads nibble b, every
+    dropped channel nibble 2*Cp, which decodes to 0 (the zero nibble past
+    p, or the pad byte's of :func:`expand_operands_q4`)."""
+    return inverse_index(idx, full, 2 * p.shape[1], torch.int64)
 
 
 def expand_operands_q4(p, idx, full):
     """The operands that make ``unpack_gather_dequantize`` the zero-fill
     expansion of a compact q4 payload p (R, Cp) with kept channels idx
-    (B,): p gains one zero byte column, and the inverse index (full,)
-    points channel ``idx[b]`` at nibble b and every dropped channel at
-    nibble 2*Cp of the pad byte, which decodes to 0 without a scatter."""
-    Cp = p.shape[1]
-    idx = idx.to(torch.int64)
-    inv = torch.full((full,), 2 * Cp, dtype=torch.int64, device=p.device)
-    inv = inv.scatter(0, idx, torch.arange(idx.shape[0], dtype=torch.int64,
-                                           device=p.device))
-    return torch.nn.functional.pad(p, (0, 1)), inv
+    (B,) within [0, 2*Cp), the TPU kernel's domain: p gains one zero byte
+    column, and :func:`inverse_index_q4` points every dropped channel at
+    nibble 2*Cp of the pad byte."""
+    return F.pad(p, (0, 1)), inverse_index_q4(p, idx, full)
 
 
 def scatter_dequantize_q4_ref(p, s, idx, full):
     """Inverse of :func:`gather_quantize_q4_ref`: p (R, Cp), s (R, 1), idx
     (B,) -> f32 (R, full), channel ``idx[b]`` = nibble b * s, the dropped
-    channels 0."""
-    pp, inv = expand_operands_q4(p, idx, full)
-    return unpack_gather_dequantize_q4_ref(pp, s, inv)
+    channels 0 * s."""
+    return unpack_gather_dequantize_q4_ref(p, s,
+                                           inverse_index_q4(p, idx, full))
 
 
 def chunk_len(T: int, chunk: int) -> int:

@@ -4,15 +4,17 @@
   * :func:`quantize_rows` — per-row symmetric int8 (the q8 ring);
   * :func:`gather_quantize` — kept-column gather fused with it
     (``Q8Codec.encode_compact``);
-  * :func:`gather_dequantize` — gather + dequantize (``Q8Codec.decode``,
-    and with an inverse index into a zero-padded q ``decode_expand``);
+  * :func:`gather_dequantize` — gather + dequantize (``Q8Codec.decode``
+    through :func:`dequantize_rows`, its identity, and ``decode_expand``
+    with an inverse index whose dropped columns read as zeros);
   * :func:`quantize_pack_q4_table` — per-row q4 quantize + nibble pack of
     many leaves in one launch (the q4 ring); :func:`quantize_pack_q4` is a
     table of one (``Q4Codec.encode``);
   * :func:`gather_quantize_q4` — kept-column gather fused with it
     (``Q4Codec.encode_compact``);
   * :func:`unpack_gather_dequantize_q4` — nibble unpack + gather in the
-    unpacked space + dequantize (``Q4Codec.decode``/``decode_expand``).
+    unpacked space + dequantize (``Q4Codec.decode`` through
+    :func:`unpack_dequantize_q4`, its identity, and ``decode_expand``).
 
 Scale granularity is one f32 scale per ROW of the (R, C) view — a
 function of the leaf shape, so ``wire_bytes`` stays analytic.
@@ -21,12 +23,16 @@ width and the base address, :func:`q4_plan` each leaf's of
 ``quantize_pack_q4``, which encodes many leaves in one launch
 (:func:`quantize_pack_q4_table`); the fused gather encodes run the same
 row engines over their kept columns, with the plans
-:func:`gather_quantize_plan` and :func:`gather_quantize_q4_plan`.  All
-are plain functions, so the CPU tests check them.  A tensor on the CPU
+:func:`gather_quantize_plan` and :func:`gather_quantize_q4_plan`, and the
+decodes take the same row plan over their output columns
+(:func:`gather_dequantize_plan`, :func:`unpack_gather_dequantize_q4_plan`).
+All are plain functions, so the CPU tests check them.  A tensor on the CPU
 takes the plain version (``kernels/ref.py``); a CUDA tensor launches the
 kernel or raises.
 ``launches`` counts launches.  The q8 gather kernels take int32
-indices, as the TPU kernels do; the q4 ones int64.
+indices, as the TPU kernels do; the q4 ones int64.  The decodes take one
+index value more than the TPU kernels: Cq (q8) or 2 Cp (q4) writes
+``0 * s``, so the zero-fill expansion needs no padded copy of the payload.
 """
 from __future__ import annotations
 
@@ -53,12 +59,13 @@ def _lib():
                  [_P, _P, _P, _I64, _I64] + [_INT] * 4 + [_P]),
                 ("gather_quantize_f32", [_P] * 4 + [_I64] * 3 + [_INT] * 5
                  + [_P]),
-                ("gather_dequantize_f32", [_P] * 4 + [_I64] * 3 + [_P]),
+                ("gather_dequantize_f32", [_P] * 4 + [_I64] * 3
+                 + [_INT] * 5 + [_P]),
                 ("quantize_pack_q4_table", [_P, _INT, _I64, _P]),
                 ("gather_quantize_q4_f32", [_P] * 4 + [_I64] * 3
                  + [_INT] * 4 + [_P]),
                 ("unpack_gather_dequantize_q4_f32",
-                 [_P] * 4 + [_I64] * 3 + [_P])):
+                 [_P] * 4 + [_I64] * 3 + [_INT] * 5 + [_P])):
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -188,6 +195,67 @@ def _encode_plan(q4: bool, R: int, B: int, C: int,
         R, B, C, xmis)
 
 
+def _stage_unit(row_bytes: int, ptr: int) -> int:
+    """The widest load (16 or 4 bytes) that copies payload rows of
+    ``row_bytes`` from address ``ptr`` aligned (then every row is), or 0:
+    rows that only byte loads copy are read in place."""
+    return next((u for u in (16, 4) if row_bytes % u == 0 and ptr % u == 0),
+                0)
+
+
+def _decode_plan_of(R: int, Cout: int, row_bytes: int, run_bytes: int,
+                    ptr: int, outptr: int,
+                    index: bool) -> tuple[int, int, int, int, int]:
+    """(lanes, nv, vec, runs, unit) of a decode whose payload rows are
+    ``row_bytes`` wide from ``ptr`` and take ``run_bytes`` a run of four
+    columns: see :func:`gather_dequantize_plan`."""
+    vec = 4 if Cout % 4 == 0 and outptr % 16 == 0 else 1
+    lanes, nv = _lanes(R, Cout // vec)
+    unit = _stage_unit(row_bytes, ptr) if index and nv and \
+        row_bytes <= Cout else 0
+    runs = int(vec == 4 and row_bytes % run_bytes == 0
+               and (unit > 0 or ptr % run_bytes == 0))
+    return lanes, nv, vec, runs, unit
+
+
+def gather_dequantize_plan(R: int, Cout: int, Cq: int, qptr: int,
+                           outptr: int, index: bool = True
+                           ) -> tuple[int, int, int, int, int]:
+    """(lanes, nv, vec, runs, unit) of ``gather_dequantize`` on ``R``
+    rows of an (R, Cq) q at address ``qptr`` into ``Cout`` output columns
+    at ``outptr`` (``index`` False: the identity, no index): vectors of
+    four output columns (vec 4: one float4 stored) where Cout % 4 == 0 and
+    out is 16-byte aligned, else single columns; lanes and vectors a lane
+    over the Cout columns as quantize_rows takes them (:func:`_lanes`; nv
+    0 streams, lanes 32); with an index and rows no wider than Cout bytes
+    (an expansion), a block's q rows staged in shared memory with loads of
+    ``unit`` bytes (16 or 4, as the row width and base allow; 0: read in
+    place); ``runs`` 1 where four q columns that are one run from a
+    multiple of 4 may be read with one 4-byte load (vec 4, Cq % 4 == 0, and
+    q 4-byte aligned or staged), as the kernel decides on the device."""
+    return _decode_plan_of(R, Cout, Cq, 4, qptr, outptr, index)
+
+
+def unpack_gather_dequantize_q4_plan(R: int, Cout: int, Cp: int, pptr: int,
+                                     outptr: int, index: bool = True
+                                     ) -> tuple[int, int, int, int, int]:
+    """(lanes, nv, vec, runs, unit) of ``unpack_gather_dequantize_q4`` on
+    ``R`` rows of an (R, Cp) packed p at ``pptr``, as
+    :func:`gather_dequantize_plan` chooses them, the rows Cp bytes wide; a
+    run of four nibbles from a multiple of 4 is one 2-byte load of p,
+    which needs Cp % 2 == 0 and p 2-byte aligned or staged."""
+    return _decode_plan_of(R, Cout, Cp, 2, pptr, outptr, index)
+
+
+@functools.lru_cache(maxsize=4096)
+def _decode_plan(q4: bool, R: int, Cout: int, Cq: int, qmis: int,
+                 omis: int, index: bool) -> tuple[int, int, int, int, int]:
+    """A decode's plan, cached (``qmis``, ``omis``: the payload's and the
+    output's addresses modulo 16)."""
+    return (unpack_gather_dequantize_q4_plan if q4 else
+            gather_dequantize_plan)(R, Cout, Cq, qmis, omis, index)
+
+
 def quantize_rows(x, *, levels: int = 127):
     """x: (R, C) float32 -> (q int8 (R, C), scale f32 (R, 1))."""
     if _on_cpu("quantize_rows", x):
@@ -226,27 +294,52 @@ def gather_quantize(x, idx, *, levels: int = 127):
     return q, s
 
 
-def gather_dequantize(q, s, idx):
-    """q: (R, Cq) int8, s: (R, 1) float32, idx: (Cout,) int32 in [0, Cq)
-    -> float32 (R, Cout) = ``q[:, idx] * s``."""
-    if _on_cpu("gather_dequantize", q):
-        return ref.gather_dequantize_ref(q, s, idx)
-    what = "gather_dequantize"
-    _check(what, q, torch.int8, q.device, 2)
-    _check(f"{what} (scale)", s, torch.float32, q.device, 2)
-    _check(f"{what} (idx)", idx, torch.int32, q.device, 1)
-    R, Cq = q.shape
+def _decode(what: str, q4: bool, pay, s, idx, Cout: int):
+    """One launch of a decode kernel: ``pay`` (R, Cq) int8 or (R, Cp)
+    uint8 packed, ``s`` (R, 1) f32, ``idx`` (Cout,) int32 (q8) or int64
+    (q4), or None for the identity over the first Cout columns -> f32 (R,
+    Cout)."""
+    dev = pay.device
+    _check(what, pay, torch.uint8 if q4 else torch.int8, dev, 2)
+    _check(f"{what} (scale)", s, torch.float32, dev, 2)
+    if idx is not None:
+        _check(f"{what} (idx)", idx, torch.int64 if q4 else torch.int32, dev,
+               1)
+    R, Cq = pay.shape
     if s.shape != (R, 1):
         raise ValueError(f"{what}: scale of shape {tuple(s.shape)}, "
                          f"expected ({R}, 1)")
-    Cout = idx.shape[0]
-    out = torch.empty((R, Cout), dtype=torch.float32, device=q.device)
-    err = _lib().gather_dequantize_f32(q.data_ptr(), s.data_ptr(),
-                                       idx.data_ptr(), out.data_ptr(), R, Cq,
-                                       Cout, _stream(q))
+    if idx is None and Cout > (2 * Cq if q4 else Cq):
+        raise ValueError(f"{what}: {Cout} columns from a payload of {Cq}")
+    out = torch.empty((R, Cout), dtype=torch.float32, device=dev)
+    plan = _decode_plan(q4, R, Cout, Cq, pay.data_ptr() % 16,
+                        out.data_ptr() % 16, idx is not None)
+    lib = _lib()
+    fn = lib.unpack_gather_dequantize_q4_f32 if q4 else \
+        lib.gather_dequantize_f32
+    err = fn(pay.data_ptr(), s.data_ptr(),
+             None if idx is None else idx.data_ptr(), out.data_ptr(), R, Cq,
+             Cout, *plan, _stream(pay))
     _build.check(err, what)
     launches[what] += 1
     return out
+
+
+def gather_dequantize(q, s, idx):
+    """q: (R, Cq) int8, s: (R, 1) float32, idx: (Cout,) int32 in [0, Cq]
+    -> float32 (R, Cout) = ``q[:, idx] * s``, where index Cq reads as a
+    zero column (``0 * s``)."""
+    if _on_cpu("gather_dequantize", q):
+        return ref.gather_dequantize_ref(q, s, idx)
+    return _decode("gather_dequantize", False, q, s, idx, idx.shape[0])
+
+
+def dequantize_rows(q, s):
+    """q: (R, C) int8, s: (R, 1) float32 -> float32 (R, C) = ``q * s``:
+    the ``gather_dequantize`` kernel without an index."""
+    if _on_cpu("gather_dequantize", q):
+        return ref.dequantize_rows_ref(q, s)
+    return _decode("gather_dequantize", False, q, s, None, q.shape[1])
 
 
 def quantize_pack_q4_table(xs):
@@ -323,22 +416,18 @@ def gather_quantize_q4(x, idx):
 
 def unpack_gather_dequantize_q4(p, s, idx):
     """p: (R, Cp) uint8, s: (R, 1) float32, idx: (Cout,) int64 into the
-    unpacked channel space [0, 2*Cp) -> float32 (R, Cout)."""
+    unpacked channel space [0, 2*Cp], where 2*Cp reads as a zero nibble
+    -> float32 (R, Cout)."""
     if _on_cpu("unpack_gather_dequantize_q4", p):
         return ref.unpack_gather_dequantize_q4_ref(p, s, idx)
-    what = "unpack_gather_dequantize_q4"
-    _check(what, p, torch.uint8, p.device, 2)
-    _check(f"{what} (scale)", s, torch.float32, p.device, 2)
-    _check(f"{what} (idx)", idx, torch.int64, p.device, 1)
-    R, Cp = p.shape
-    if s.shape != (R, 1):
-        raise ValueError(f"{what}: scale of shape {tuple(s.shape)}, "
-                         f"expected ({R}, 1)")
-    Cout = idx.shape[0]
-    out = torch.empty((R, Cout), dtype=torch.float32, device=p.device)
-    err = _lib().unpack_gather_dequantize_q4_f32(
-        p.data_ptr(), s.data_ptr(), idx.data_ptr(), out.data_ptr(), R, Cp,
-        Cout, _stream(p))
-    _build.check(err, what)
-    launches[what] += 1
-    return out
+    return _decode("unpack_gather_dequantize_q4", True, p, s, idx,
+                   idx.shape[0])
+
+
+def unpack_dequantize_q4(p, s, n: int):
+    """p: (R, Cp) uint8, s: (R, 1) float32 -> float32 (R, n), the first n
+    nibbles of each row times its scale: the
+    ``unpack_gather_dequantize_q4`` kernel without an index."""
+    if _on_cpu("unpack_gather_dequantize_q4", p):
+        return ref.unpack_dequantize_q4_ref(p, s, n)
+    return _decode("unpack_gather_dequantize_q4", True, p, s, None, n)

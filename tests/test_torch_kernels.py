@@ -14,8 +14,8 @@ from repro.kernels import ref as jref  # noqa: E402
 
 from repro_torch.kernels import compact, ops, wire  # noqa: E402
 
-from torch_encode_cases import (check_encode_plan,  # noqa: E402
-                                codec_views, kept_index)
+from torch_encode_cases import (check_decode_plan,  # noqa: E402
+                                check_encode_plan, codec_views, kept_index)
 from torch_port_helpers import jax_reference, to_np  # noqa: E402
 
 # the shapes of tests/test_kernels.py::test_prox_sgd_update_shim, plus
@@ -428,6 +428,96 @@ def test_gather_quantize_equals_jitted_reference(kind, R, C, B):
     js, ts = np.asarray(js), to_np(ts)
     assert ts.shape == js.shape
     assert np.all(np.abs(ts - js) <= np.spacing(np.abs(js)))
+
+
+# ---------------------------------------------------------------------------
+# the q8 decode's plan (wire.gather_dequantize_plan) and its index domain
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ptr", [0, 4])
+@pytest.mark.parametrize("optr", [0, 4])
+def test_gather_dequantize_plan_covers_codec_operands(ptr, optr):
+    """The decodes of ResNet-18's 60 encode_compact operands at 4 members
+    (q (R, B) expanded to C columns, the codec API's decode_expand): every
+    row in registers; float4 stores and 4-byte runs of q (q 4 bytes off
+    alignment still reads them), single columns where the output is 4
+    bytes off."""
+    views = codec_views("resnet18", 4)
+    assert len(views) == 60
+    for _, R, C, B, _ in views:
+        lanes, nv, vec, runs, unit = check_decode_plan(
+            wire.gather_dequantize_plan, R, C, B, ptr, optr, q4=False)
+        assert nv > 0 and vec == (4 if optr == 0 else 1)
+        assert unit == (16 if ptr == 0 else 4) and runs == (optr == 0)
+
+
+@pytest.mark.parametrize("R,Cout,Cq,ptr,optr,index", [
+    (1, 512, 256, 0, 0, True),        # one row
+    (97, 33, 33, 0, 0, True),         # Cout % 4 != 0: single columns
+    (97, 1, 1, 0, 0, True),           # Cout = 1
+    (97, 12, 33, 0, 0, True),         # q wider than out: read in place
+    (97, 12, 30, 0, 0, True),         # the same, Cq % 4 != 0: no runs
+    (97, 12, 32, 2, 0, True),         # q 2 bytes off, in place: no runs
+    (97, 64, 30, 0, 0, True),         # Cq % 4 != 0: in place, no runs
+    (97, 64, 32, 4, 0, True),         # staged by words, runs
+    (97, 64, 32, 0, 0, True),         # staged by 16-byte units, runs
+    (97, 64, 64, 0, 0, False),        # the identity: nothing staged
+    (97, 64, 64, 2, 0, False),        # the identity 2 bytes off: no runs
+    (5, 6144, 3072, 0, 0, True),      # the widest row held in registers
+    (5, 8192, 4096, 0, 0, True),      # too wide: streams, nothing staged
+    (3, 1537, 1537, 0, 0, True),      # too wide for single columns
+    (18432, 512, 256, 0, 0, True),    # ResNet's largest leaf
+])
+def test_gather_dequantize_plan_edges(R, Cout, Cq, ptr, optr, index):
+    check_decode_plan(wire.gather_dequantize_plan, R, Cout, Cq, ptr, optr,
+                      q4=False, index=index)
+
+
+@pytest.mark.parametrize("kind", ["groups", "off4", "cols"])
+@pytest.mark.parametrize("R,C,B", [(6, 64, 32), (3, 40, 12), (1, 9, 1)])
+def test_gather_dequantize_zero_index_equals_padded_pallas(kind, R, C, B):
+    """The decode's extended index (column B of an (R, B) q reading as a
+    zero column) against the TPU kernel in interpret mode on q padded by
+    that zero column, the JAX contract: bit-equal, NaN on a row whose
+    scale is NaN."""
+    from repro.kernels import wire as jwire
+    rng = np.random.default_rng(R + C + B)
+    q = rng.integers(-127, 128, (R, B)).astype(np.int8)
+    s = np.abs(rng.standard_normal((R, 1))).astype(np.float32)
+    s[0, 0] = np.nan
+    idx = kept_index(kind, C, B, 3, g=min(8, B)) if kind != "cols" else \
+        np.sort(rng.choice(C, B, replace=False))
+    inv = ops._ref.inverse_index(torch.from_numpy(idx), C)
+    got = wire.gather_dequantize(torch.from_numpy(q), torch.from_numpy(s),
+                                 inv)
+    want = jwire.gather_dequantize(jnp.pad(jnp.asarray(q), ((0, 0), (0, 1))),
+                                   jnp.asarray(s), jnp.asarray(to_np(inv)),
+                                   interpret=True)
+    np.testing.assert_array_equal(to_np(got), np.asarray(want))
+    assert np.isnan(to_np(got)[0]).all()
+
+
+def test_q8_decode_shims_pass_the_payload_itself(monkeypatch):
+    """The zero-fill shim hands the decode q itself (no padded copy) and
+    an inverse index whose dropped columns hold B; the plain decode hands
+    it no index."""
+    seen = []
+    monkeypatch.setattr(wire, "gather_dequantize",
+                        lambda q, s, idx: seen.append((q, idx)) or
+                        torch.zeros(q.shape[0], idx.shape[0]))
+    monkeypatch.setattr(wire, "dequantize_rows",
+                        lambda q, s: seen.append((q, None)) or
+                        torch.zeros(q.shape))
+    q = torch.ones(3, 4, dtype=torch.int8)
+    idx = torch.tensor([1, 4, 5, 7])
+    ops.scatter_dequantize(q, torch.ones(3, 1), idx, 9)
+    ops.dequantize_rows(q, torch.ones(3, 1))
+    (q1, inv), (q2, none) = seen
+    assert q1.shape == (3, 4) and q1.data_ptr() == q.data_ptr()
+    assert inv.dtype == torch.int32
+    assert inv.tolist() == [4, 0, 4, 4, 1, 2, 4, 3, 4]
+    assert q2.shape == (3, 4) and none is None
 
 
 # ---------------------------------------------------------------------------

@@ -823,3 +823,127 @@ def test_gather_encodes_codec_operands_equal_plain(dev):
         for kind in ("groups", "cols"):
             _encodes_equal_plain(x, _kept(kind, C, B, n, dev,
                                           rule.group_size))
+
+
+# ---------------------------------------------------------------------------
+# the decodes on each path of their plans (wire.gather_dequantize_plan,
+# wire.unpack_gather_dequantize_q4_plan): vectors of four columns read as
+# one run or column by column, single columns, zero-index columns, the
+# identity, rows held by the plan or streamed, a payload base off
+# alignment
+# ---------------------------------------------------------------------------
+
+
+def _close(a, b):
+    torch.cuda.synchronize()
+    assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def _decodes_equal_plain(x, idx, off=0):
+    """Both decodes of the plain encodes of x[:, idx] (payload ``off``
+    bytes past alignment), one launch a call, bit-equal to the plain
+    versions: by the inverse index whose dropped columns read the zero
+    index (the shims' operands), on the payload padded by a zero column
+    (the TPU kernels'), through the zero-fill shims, without an index, by
+    an arange (the payload rows staged) and by every third column (read
+    in place)."""
+    C, B = x.shape[1], idx.shape[0]
+    q, s = ref.gather_quantize_ref(x, idx.to(torch.int32))
+    p, s4 = ref.gather_quantize_q4_ref(x, idx)
+    q, p = _offset(q, off), _offset(p, off)
+    inv, inv4 = ref.inverse_index(idx, C), ref.inverse_index_q4(p, idx, C)
+    ops.reset_launch_counts()
+    out = wire.gather_dequantize(q, s, inv)
+    out4 = wire.unpack_gather_dequantize_q4(p, s4, inv4)
+    counts = ops.launch_counts()
+    assert counts["gather_dequantize"] == 1
+    assert counts["unpack_gather_dequantize_q4"] == 1
+    _close(out, ref.gather_dequantize_ref(q, s, inv))
+    _close(out4, ref.unpack_gather_dequantize_q4_ref(p, s4, inv4))
+    qp, invp = ref.expand_operands(q, idx, C)
+    _close(wire.gather_dequantize(qp, s, invp), out)
+    pp, invp4 = ref.expand_operands_q4(p, idx, C)
+    _close(wire.unpack_gather_dequantize_q4(pp, s4, invp4), out4)
+    _close(ops.scatter_dequantize(q, s, idx, C), out)
+    _close(ops.scatter_dequantize_q4(p, s4, idx, C), out4)
+    _close(wire.dequantize_rows(q, s), ref.dequantize_rows_ref(q, s))
+    _close(wire.unpack_dequantize_q4(p, s4, B),
+           ref.unpack_dequantize_q4_ref(p, s4, B))
+    for ar in (torch.arange(B, device=x.device),      # rows staged
+               torch.arange(0, B, 3, device=x.device)):  # read in place
+        _close(wire.gather_dequantize(q, s, ar.to(torch.int32)),
+               ref.gather_dequantize_ref(q, s, ar))
+        _close(wire.unpack_gather_dequantize_q4(p, s4, ar),
+               ref.unpack_gather_dequantize_q4_ref(p, s4, ar))
+    dropped = torch.ones(C, dtype=torch.bool, device=x.device)
+    dropped[idx] = False
+    finite = torch.isfinite(s[:, 0]) & torch.isfinite(s4[:, 0])
+    assert torch.all(out[finite][:, dropped] == 0)
+    assert torch.all(out4[finite][:, dropped] == 0)
+
+
+DECODE_PATHS = [   # (R, C, B, kept kind, payload base offset in bytes)
+    (37, 512, 256, "groups", 0),      # runs of four, one vector a lane
+    (4608, 512, 256, "groups", 0),    # runs of four, 4 vectors a lane
+    (37, 512, 256, "broken", 0),      # a run broken inside a vector
+    (37, 512, 256, "off4", 0),        # runs off a multiple of 4
+    (37, 512, 256, "cols", 0),        # vectors read column by column
+    (97, 33, 10, "cols", 0),          # Cout % 4 != 0: single columns
+    (97, 33, 9, "cols", 0),           # odd B: a pad nibble
+    (13, 512, 256, "groups", 1),      # a base 1 byte off: in place
+    (13, 512, 256, "groups", 2),      # 2 bytes off: q4 runs, no q8 runs
+    (13, 512, 256, "groups", 4),      # 4 bytes off: staged by words
+    (1, 512, 256, "groups", 0),       # one row
+    (5, 1, 1, "cols", 0),             # Cout = 1
+    (3, 2048, 1024, "groups", 0),     # 256 lanes a row
+    (5, 6144, 3072, "groups", 0),     # the widest row the plan holds
+    (3, 16384, 8192, "groups", 0),    # streamed rows
+    (3, 16383, 8190, "cols", 0),      # streamed single columns
+]
+
+
+@pytest.mark.parametrize("R,C,B,kind,off", DECODE_PATHS)
+def test_decodes_plan_paths_equal_plain(R, C, B, kind, off, dev):
+    x = _randn((R, C), R + B, dev, 0.05)
+    _decodes_equal_plain(x, _kept(kind, C, B, R, dev), off)
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+@pytest.mark.parametrize("kind", ["groups", "cols"])
+def test_decodes_nonfinite_scales_equal_plain(value, kind, dev):
+    """A row whose scale is NaN or inf decodes to the plain versions'
+    values, NaN on its dropped (zero-index) columns too."""
+    x = _randn((13, 512), 4, dev)
+    idx = _kept(kind, 512, 256, 3, dev)
+    x[1, idx[5]] = x[12, idx[-1]] = float(value)
+    _decodes_equal_plain(x, idx)
+
+
+def test_decodes_codec_operands_equal_plain(dev):
+    """The decodes of ResNet-18's 60 encode_compact operands at 4 members
+    (the codec API's), at kept sets of whole groups and of single columns,
+    bit-equal."""
+    views = codec_views("resnet18", 4)
+    assert len(views) == 60
+    for n, (_, R, C, B, rule) in enumerate(views):
+        x = _randn((R, C), n, dev, 0.05)
+        for kind in ("groups", "cols"):
+            _decodes_equal_plain(x, _kept(kind, C, B, n, dev,
+                                          rule.group_size))
+
+
+def test_decodes_refuse_bad_operands(dev):
+    q = torch.zeros(4, 8, dtype=torch.int8, device=dev)
+    s = torch.ones(4, 1, device=dev)
+    with pytest.raises(ValueError):      # int64 indices
+        wire.gather_dequantize(q, s, torch.arange(4, device=dev))
+    with pytest.raises(ValueError):      # a non-contiguous q
+        wire.dequantize_rows(torch.zeros(8, 4, dtype=torch.int8,
+                                         device=dev).t(), s)
+    with pytest.raises(ValueError):      # more nibbles than p holds
+        wire.unpack_dequantize_q4(q.view(torch.uint8), s, 17)
+    with pytest.raises(ValueError):      # int32 indices
+        wire.unpack_gather_dequantize_q4(
+            q.view(torch.uint8), s, torch.arange(4, device=dev,
+                                                 dtype=torch.int32))

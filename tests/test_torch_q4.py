@@ -19,8 +19,8 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch import comm as tcomm  # noqa: E402
 from repro_torch.kernels import ops, wire  # noqa: E402
 
-from torch_encode_cases import (check_encode_plan,  # noqa: E402
-                                codec_views, kept_index)
+from torch_encode_cases import (check_decode_plan,  # noqa: E402
+                                check_encode_plan, codec_views, kept_index)
 from torch_port_helpers import (ieee_gather_quantize_q4,  # noqa: E402
                                 ieee_quantize_pack_q4, jax_reference, to_np)
 
@@ -372,3 +372,95 @@ def test_gather_quantize_q4_equals_jitted_reference(kind, R, C, B):
     np.testing.assert_array_equal(to_np(tp), np.asarray(jp))
     assert tuple(ts.shape) == js.shape
     _ulp_close(to_np(ts), js)
+
+
+# ---------------------------------------------------------------------------
+# the q4 decode's plan (wire.unpack_gather_dequantize_q4_plan) and its
+# index domain
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ptr", [0, 4])
+@pytest.mark.parametrize("optr", [0, 4])
+def test_unpack_gather_dequantize_q4_plan_covers_codec_operands(ptr, optr):
+    """The q4 decodes of ResNet-18's 60 encode_compact operands at 4
+    members (p (R, B/2) expanded to C columns): every row in registers;
+    float4 stores and 2-byte runs of p at bases 0 and 4 modulo 16, single
+    columns where the output is 4 bytes off."""
+    views = codec_views("resnet18", 4)
+    assert len(views) == 60
+    for _, R, C, B, _ in views:
+        lanes, nv, vec, runs, unit = check_decode_plan(
+            wire.unpack_gather_dequantize_q4_plan, R, C, (B + 1) // 2, ptr,
+            optr, q4=True)
+        assert nv > 0 and vec == (4 if optr == 0 else 1)
+        assert unit == (16 if ptr == 0 else 4) and runs == (optr == 0)
+
+
+@pytest.mark.parametrize("R,Cout,Cp,ptr,optr,index", [
+    (1, 512, 128, 0, 0, True),        # one row
+    (97, 33, 17, 0, 0, True),         # Cout % 4 != 0: single columns
+    (97, 1, 1, 0, 0, True),           # Cout = 1
+    (97, 12, 5, 0, 0, True),          # Cp odd: in place, no runs
+    (97, 12, 6, 1, 0, True),          # p 1 byte off: in place, no runs
+    (97, 16, 6, 2, 0, True),          # p 2 bytes off: in place, runs
+    (97, 16, 8, 4, 0, True),          # staged by words, runs
+    (97, 8, 12, 2, 0, True),          # p wider than out: read in place
+    (97, 8, 12, 1, 0, True),          # the same 1 byte off: no runs
+    (97, 64, 32, 0, 0, False),        # the identity: nothing staged
+    (97, 64, 32, 1, 0, False),        # the identity 1 byte off: no runs
+    (5, 6144, 1536, 0, 0, True),      # the widest row held in registers
+    (5, 8192, 2048, 2, 0, True),      # too wide: streams, nothing staged
+    (18432, 512, 128, 0, 0, True),    # ResNet's largest leaf
+])
+def test_unpack_gather_dequantize_q4_plan_edges(R, Cout, Cp, ptr, optr,
+                                                index):
+    check_decode_plan(wire.unpack_gather_dequantize_q4_plan, R, Cout, Cp,
+                      ptr, optr, q4=True, index=index)
+
+
+@pytest.mark.parametrize("kind", ["groups", "off4", "cols"])
+@pytest.mark.parametrize("R,C,B", [(6, 64, 32), (3, 40, 12), (2, 9, 3)])
+def test_unpack_gather_dequantize_q4_zero_index_equals_padded_pallas(
+        kind, R, C, B):
+    """The q4 decode's extended index (nibble 2*Cp of an (R, Cp) p reading
+    as zero) against the TPU kernel in interpret mode on p padded by a
+    zero byte column, the JAX contract: bit-equal, NaN on a row whose
+    scale is NaN."""
+    from repro.kernels import wire as jwire
+    rng = np.random.default_rng(R + C + B)
+    p = rng.integers(0, 256, (R, (B + 1) // 2)).astype(np.uint8)
+    s = np.abs(rng.standard_normal((R, 1))).astype(np.float32)
+    s[0, 0] = np.nan
+    idx = kept_index(kind, C, B, 3, g=min(8, B)) if kind != "cols" else \
+        np.sort(rng.choice(C, B, replace=False))
+    tp = torch.from_numpy(p)
+    inv = ops._ref.inverse_index_q4(tp, torch.from_numpy(idx), C)
+    got = wire.unpack_gather_dequantize_q4(tp, torch.from_numpy(s), inv)
+    want = jwire.unpack_gather_dequantize_q4(
+        jnp.pad(jnp.asarray(p), ((0, 0), (0, 1))), jnp.asarray(s),
+        jnp.asarray(to_np(inv)), interpret=True)
+    np.testing.assert_array_equal(to_np(got), np.asarray(want))
+    assert np.isnan(to_np(got)[0]).all()
+
+
+def test_q4_decode_shims_pass_the_payload_itself(monkeypatch):
+    """The q4 zero-fill shim hands the decode p itself (no padded copy)
+    and an int64 inverse index whose dropped columns hold 2*Cp; the plain
+    decode hands it no index."""
+    seen = []
+    monkeypatch.setattr(wire, "unpack_gather_dequantize_q4",
+                        lambda p, s, idx: seen.append((p, idx)) or
+                        torch.zeros(p.shape[0], idx.shape[0]))
+    monkeypatch.setattr(wire, "unpack_dequantize_q4",
+                        lambda p, s, n: seen.append((p, n)) or
+                        torch.zeros(p.shape[0], n))
+    p = torch.ones(3, 2, dtype=torch.uint8)
+    idx = torch.tensor([1, 4, 7])
+    ops.scatter_dequantize_q4(p, torch.ones(3, 1), idx, 9)
+    ops.unpack_dequantize_q4(p, torch.ones(3, 1), 3)
+    (p1, inv), (p2, n) = seen
+    assert p1.shape == (3, 2) and p1.data_ptr() == p.data_ptr()
+    assert inv.dtype == torch.int64
+    assert inv.tolist() == [4, 0, 4, 4, 1, 4, 4, 2, 4]
+    assert p2.shape == (3, 2) and n == 3

@@ -59,3 +59,38 @@ def check_encode_plan(plan, R, B, C, ptr, q4):
     else:
         assert lanes == 32 and nvec > 256 * wire.QUANT_NV[-1]
     return lanes, nv, vec, runs
+
+
+def check_decode_plan(plan, R, Cout, Cq, ptr, optr, q4, index=True):
+    """A decode's plan over ``Cout`` output columns of an (R, Cq) payload
+    at ``ptr`` (Cq bytes a row; q4: Cp packed bytes) into an output at
+    ``optr`` (``index`` False: the identity): vectors of four columns
+    where Cout % 4 == 0 and the output is 16-byte aligned, else single
+    columns; lanes and vectors a lane as the quantizer takes them over
+    the output columns, the registers covering the row, or it streams
+    past 6 vectors a lane at 256 lanes; with an index, rows held in
+    registers and payload rows no wider than Cout bytes, the block's rows
+    staged with the widest aligned load, 16 or 4 bytes (else unit 0);
+    one-load runs (4 bytes of q, 2 of p) only with vectors of four and
+    payload rows that keep each run aligned where the kernel reads them.
+    Returns (lanes, nv, vec, runs, unit)."""
+    lanes, nv, vec, runs, unit = plan(R, Cout, Cq, ptr, optr, index)
+    assert vec == (4 if Cout % 4 == 0 and optr % 16 == 0 else 1)
+    nvec = Cout // vec
+    assert (lanes, nv) == wire._lanes(R, nvec)
+    assert lanes in (1, 2, 4, 8, 16, 32, 64, 128, 256)
+    if nv:
+        assert nv in wire.QUANT_NV and lanes * nv * vec >= Cout
+        assert Cout <= 256 * 6 * 4     # the index a block stages (24 KB)
+    else:
+        assert lanes == 32 and nvec > 256 * wire.QUANT_NV[-1]
+    if index and nv and Cq <= Cout and Cq % 4 == 0 == ptr % 4:
+        assert unit in (16, 4) and Cq % unit == 0 and ptr % unit == 0
+        assert unit == 16 or Cq % 16 or ptr % 16
+        assert 256 // lanes * Cq <= 6 * 1024    # the rows a block stages
+    else:
+        assert unit == 0
+    run = 2 if q4 else 4
+    assert runs == int(vec == 4 and Cq % run == 0
+                       and (unit > 0 or ptr % run == 0))
+    return lanes, nv, vec, runs, unit
