@@ -67,16 +67,39 @@ Phases (any failure exits non-zero and prints no result line):
    1e-5;
 5. one more round of phase 3's path under ``torch.profiler``: device time
    by kernel and the device's busy share;
+7a. checkpoints on phase 3's path: 4 rounds with background saves every 2
+   rounds (keep 1) into a fresh temporary directory (removed after 7b):
+   only step 4 is left, its arrays file holds the state's bytes, and
+   ``restore`` of it is bit-equal to the state ``train`` returned in every
+   leaf; the save alone (snapshot, write) and the restore are timed on the
+   host; then ``train`` to 6 rounds resumes from it twice, bit-equal, with
+   phase 3's bytes and launches in each round;
+7b. ``restore_elastic`` of that checkpoint into W = 8 at levels (2, 4):
+   every leaf equals the saved one or its first rows; one round resumed
+   from it, loss finite;
 3b. the same model trained with physical reconfiguration over the
    compact+q4 inter-node wire: 8 rounds, masks frozen at round 3, the
    whole state migrated onto the budget-B ResNet (stem 32, stages
    32/64/128/256) before round 4; 62 x 8 prox and one q4 quantize launch
    (all 62 leaves) and no q8 launch per round; per-round walls, bytes and peak memory
-   before and after the reconfiguration; then trained again, bit-equal;
+   before and after the reconfiguration; then trained again saving every 2
+   rounds (keep 1), bit-equal: saving perturbs nothing;
+7c. ``train`` to 10 rounds resumes from that run's step-8 checkpoint
+   (reconfigured) twice, straight into the budget-B engine (2,797,610
+   parameters): reconfigured_at 8, 1,462,053 bytes and one q4 table launch
+   a round, bit-equal runs;
 5b. one more reconfigured round under the profiler;
 4. one resnet-smoke round on the card and on the CPU from the same state
    (the kernels in context against the plain versions);
 4b. the same for one reconfigured resnet-smoke round over compact+q4;
+7d. phase 3's configuration for 4 rounds without a policy (the walls'
+   baseline), under a failure window (worker 3,
+   rounds 1-2) times a recovering straggler, then under a straggler scoped
+   to coupling class cnn:mid1: every round's weights and class weights
+   equal the policy's, losses finite, phase 3's launches; no kernel build
+   and one round-function call a round in phase 3 and in these runs
+   (``dist.monitor``); one resnet-smoke round with class-scoped weights on
+   the card and on the CPU from one state (rtol 1e-4);
 6. ssd_chunk_scan against its plain version in f32 and bf16 at phase 6a's
    shape and edge shapes (Q not dividing T, H = 5 with Bt = 1, Q = 64,
    chunks past exp's range): bit-equal (hence within rtol = atol = 2e-4)
@@ -122,8 +145,10 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1406,9 +1431,10 @@ def _snapshot_masks(state) -> dict:
     return {name: m["idx"].clone() for name, m in state["masks"].items()}
 
 
-def q8_engine(torch, dev):
-    """Phase 3's engine: resnet18 full width, 16 workers at levels (4, 4),
-    compact+q8, masks frozen at round 3; 32 images per worker."""
+def q8_engine(torch, dev, levels=(4, 4)):
+    """Phase 3's engine: resnet18 full width, 16 workers at levels (4, 4)
+    (or ``levels``), compact+q8, masks frozen at round 3; 32 images per
+    worker."""
     from repro_torch.configs import (ConsensusSpec, HsadmmConfig,
                                      ShapeConfig, get_config)
     from repro_torch.models import build
@@ -1416,39 +1442,63 @@ def q8_engine(torch, dev):
     hp = HsadmmConfig(rho1=1e-3, rho2=1e-4, local_steps=8, t_freeze=3,
                       wire_inter="compact+q8")
     cfg = get_config("resnet18").replace(hsadmm=hp)
-    shape = ShapeConfig("chip_smoke", "train", 32, 512)
-    return Engine(build(cfg), shape,
-                  consensus=ConsensusSpec(levels=(4, 4), compact_from_level=1),
-                  device=dev), shape
+    consensus = ConsensusSpec(levels=levels, compact_from_level=1)
+    shape = ShapeConfig("chip_smoke", "train", 32,
+                        32 * consensus.num_workers)
+    return Engine(build(cfg), shape, consensus=consensus, device=dev), shape
+
+
+def counted_rounds():
+    """``(context, CallCounter)``: inside the context every round function
+    an ``Engine`` hands out (``round_step_fn``) counts its calls."""
+    from repro_torch.dist import monitor
+    from repro_torch.train.engine import Engine
+    counter = monitor.CallCounter()
+    real = Engine.round_step_fn
+
+    def counted(self, frozen):
+        return counter.wrap(real(self, frozen),
+                            "frozen" if frozen else "dynamic")
+    return patched(Engine, "round_step_fn", counted), counter
 
 
 def run_path(torch, engine, rounds: int, eta: float,
-             deterministic: bool = True):
+             deterministic: bool = True, **run_kw):
     """``engine`` = (Engine, ShapeConfig) trained ``rounds`` rounds through
-    the port's ``train`` (seed 0).  ``deterministic=False`` turns cuDNN's
-    deterministic switch back off after the Engine set it (only to time
-    what the switch costs).  Launch counts are zeroed just before the run
-    and read after each round's dispatch; the mask indices are kept after
-    every round; the peak is ``max_memory_allocated`` over the run."""
+    the port's ``train`` (seed 0; ``run_kw`` are more ``RunConfig``
+    fields).  ``deterministic=False`` turns cuDNN's deterministic switch
+    back off after the Engine set it (only to time what the switch
+    costs).  Launch counts are zeroed just before the run and read after
+    each round's dispatch; the mask indices and the weights the round ran
+    with are kept after every round (device copies, no sync); the peak is
+    ``max_memory_allocated`` over the run; ``builds`` counts the kernel
+    builds during the run (``dist.monitor.compile_count``) and ``calls``
+    the calls of the round functions."""
+    from repro_torch.dist import monitor
     from repro_torch.kernels import ops
     from repro_torch.train.loop import RunConfig, train
     eng, shape = engine
     torch.backends.cudnn.deterministic = deterministic
-    per_round, masks = [], []
+    per_round, masks, weights = [], [], []
 
     def snapshot(k, state):   # runs after each round's dispatch
         per_round.append(ops.launch_counts())
         masks.append(_snapshot_masks(state))
+        weights.append((state["weights"].clone(),
+                        {c: v.clone() for c, v in
+                         state.get("class_weights", {}).items()}))
 
     run = RunConfig(outer_iters=rounds, shape=shape, eta=eta, seed=0,
-                    metrics_every=1, eval_fn=snapshot, log=None)
+                    metrics_every=1, eval_fn=snapshot, log=None, **run_kw)
+    rounds_counted, counter = counted_rounds()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        state, rep = train(eng, run)
-        torch.cuda.synchronize()
+        with rounds_counted, monitor.compile_count() as builds:
+            state, rep = train(eng, run)
+            torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic = True
     wall = time.perf_counter() - t0
@@ -1457,7 +1507,9 @@ def run_path(torch, engine, rounds: int, eta: float,
                 for i, c in enumerate(per_round)]
     return {"eng": eng, "state": state, "rep": rep, "shape": shape,
             "totals": totals, "launches": launches, "masks": masks,
-            "wall": wall, "peak": torch.cuda.max_memory_allocated()}
+            "weights": weights, "wall": wall,
+            "peak": torch.cuda.max_memory_allocated(),
+            "builds": builds.compiles, "calls": counter.calls}
 
 
 def run_q8(torch, dev, rounds: int = 6, deterministic: bool = True):
@@ -1505,16 +1557,29 @@ def train_full(torch, dev):
     want_b = [2_861_818] * 3 + [2_860_858] * 3
     if rep.comm_bytes_internode != want_b:
         raise AssertionError(f"bytes {rep.comm_bytes_internode}")
+    check_q8_rounds(r)
+    return r
+
+
+def check_q8_rounds(r):
+    """Every round of a run of phase 3's configuration (``run_path``'s
+    result): the inter-node bytes of its kind (dynamic 2,861,818, frozen
+    2,860,858) and phase 3's launches: 62 x 8 prox, 62 quantize (one a
+    leaf, whatever the class partition) and 16 gather launches, and 40
+    group-norm launches in a dynamic round."""
+    rep, launches = r["rep"], r["launches"]
     gathers, views = round_launches(r["eng"].bundle.plan)
     for k, c in enumerate(launches):
         dyn = rep.executables[k] == "dynamic"
+        if rep.comm_bytes_internode[k] != (2_861_818 if dyn else 2_860_858):
+            raise AssertionError(f"round {k} bytes "
+                                 f"{rep.comm_bytes_internode[k]}")
         if c["fused_prox_sgd_dyn"] != 62 * 8 or c["quantize_rows"] != 62 \
                 or c["gather_groups"] != gathers \
                 or c["group_norms_sq"] != (views if dyn else 0):
             raise AssertionError(f"round {k} launches {c}; expected "
                                  f"{gathers} gathers and {views} group-norm "
                                  "launches in a dynamic round")
-    return r
 
 
 def _first_diff(torch, a: dict, b: dict):
@@ -1716,11 +1781,12 @@ def profile_round(torch, eng, state, shape, label="frozen", eta=1e-2):
 
 
 def smoke_round_cpu_vs_card(torch, dev, bundle, spec, shape, keys, eta,
-                            label):
-    """One round of ``bundle`` under ``spec`` from one state on the card
-    and on the CPU (plain versions), on the first 8 batches (``keys``) of
-    ``shape``'s stream for 4 workers: theta and z agree to rtol 1e-4
-    (atol 1e-6), the mask indices are equal."""
+                            label, prepare=lambda st: st):
+    """One round of ``bundle`` under ``spec`` from one state (the init,
+    through ``prepare``) on the card and on the CPU (plain versions), on
+    the first 8 batches (``keys``) of ``shape``'s stream for 4 workers:
+    theta and z agree to rtol 1e-4 (atol 1e-6), the mask indices are
+    equal."""
     import numpy as np
     from repro_torch.core.hsadmm import init_state, round_step
     from repro_torch.data.synthetic import make_stream
@@ -1729,8 +1795,8 @@ def smoke_round_cpu_vs_card(torch, dev, bundle, spec, shape, keys, eta,
           for k in keys}
     out = {}
     for d in ("cpu", dev):
-        st0 = init_state(bundle.init(torch.Generator().manual_seed(0), d),
-                         spec)
+        st0 = prepare(init_state(
+            bundle.init(torch.Generator().manual_seed(0), d), spec))
         st, _ = round_step(st0, {k: v.to(d) for k, v in sb.items()},
                            bundle.train_loss, spec, eta)
         out[str(d)] = st
@@ -1769,11 +1835,12 @@ def smoke_resnet_cpu_vs_card(torch, dev):
                             ("images", "labels"), 1e-2, "smoke round")
 
 
-def run_reconfig(torch, dev):
-    """Phase 3b's configuration trained through the port's ``train``,
-    with the launch counts, mask indices, peak and held memory of every
-    round.  Returns a dict of them, the engine, shape, final state,
-    report, launch totals and wall time."""
+def run_reconfig(torch, dev, rounds: int = 8, **run_kw):
+    """Phase 3b's configuration trained ``rounds`` rounds through the
+    port's ``train`` (``run_kw``: more ``RunConfig`` fields), with the
+    launch counts, mask indices, peak and held memory of every round.
+    Returns a dict of them, the engine, shape, final state, report,
+    launch totals and wall time."""
     from repro_torch.configs import (ConsensusSpec, HsadmmConfig,
                                      ShapeConfig, get_config)
     from repro_torch.kernels import ops
@@ -1797,9 +1864,9 @@ def run_reconfig(torch, dev):
         held.append(torch.cuda.memory_allocated())
         torch.cuda.reset_peak_memory_stats()
 
-    run = RunConfig(outer_iters=8, shape=shape, eta=1e-2, seed=0,
+    run = RunConfig(outer_iters=rounds, shape=shape, eta=1e-2, seed=0,
                     metrics_every=1, reconfig=True, eval_fn=snapshot,
-                    log=None)
+                    log=None, **run_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1815,13 +1882,13 @@ def run_reconfig(torch, dev):
             "peaks": peaks, "held": held, "wall": wall}
 
 
-def train_reconfig(torch, dev):
+def train_reconfig(torch, dev, **run_kw):
     """Phase 3b: the main path of physical reconfiguration over the
-    compact+q4 inter-node wire (``run_reconfig``), checked.  Returns a
-    dict of the launch totals, the reconfigured engine, final state,
-    shape, report, the mask indices after every round and memory
-    facts."""
-    r = run_reconfig(torch, dev)
+    compact+q4 inter-node wire (``run_reconfig``; ``run_kw``: more
+    ``RunConfig`` fields, such as checkpoints), checked.  Returns a dict
+    of the launch totals, the reconfigured engine, final state, shape,
+    report, the mask indices after every round and memory facts."""
+    r = run_reconfig(torch, dev, **run_kw)
     eng, shape, state, rep = r["eng"], r["shape"], r["state"], r["rep"]
     totals, launches, masks = r["totals"], r["launches"], r["masks"]
     peaks, held, wall = r["peaks"], r["held"], r["wall"]
@@ -2100,6 +2167,304 @@ def smoke_reconfig_cpu_vs_card(torch, dev):
     say(f"smoke reconfigured round card vs CPU: stem "
         f"{tuple(cpu['theta']['stem'].shape)}, theta/z within rtol 1e-4 "
         f"(max abs diff {worst}), mask idx equal")
+
+
+# ---------------------------------------------------------------------------
+# checkpoints, fault tolerance and the monitor on full-width ResNet-18
+# (phases 7a-7d)
+# ---------------------------------------------------------------------------
+
+# parameters of the budget-B ResNet-18 that phase 3b reconfigures onto,
+# and its inter-node bytes a round (compact+q4)
+RECONFIGURED_PARAMS = 2_797_610
+RECONFIGURED_BYTES = 1_462_053
+
+
+def _leaves(state) -> dict:
+    """{"/"-joined path: tensor} of a state: the checkpoint's keys."""
+    from repro_torch.dist.checkpoint import _flatten
+    return _flatten(state)
+
+
+def _nz(counts: dict) -> dict:
+    """The launch counts that are not zero."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def _ckpt_bytes(torch, state) -> int:
+    """Array bytes of ``state`` as a checkpoint stores it (int64 as
+    int32, the JAX package's dtypes)."""
+    return sum(t.numel() * (4 if t.dtype == torch.int64 else t.element_size())
+               for t in _leaves(state).values())
+
+
+def _assert_states_equal(torch, a, b, label) -> int:
+    """Every leaf of two states bit-equal, dtypes too; returns the leaf
+    count."""
+    la, lb = _leaves(a), _leaves(b)
+    if set(la) != set(lb):
+        raise AssertionError(f"{label}: leaves {sorted(set(la) ^ set(lb))} "
+                             "are in one state only")
+    for p, x in la.items():
+        if x.dtype != lb[p].dtype or not torch.equal(x, lb[p]):
+            raise AssertionError(f"{label}: leaf {p} differs")
+    return len(la)
+
+
+def ckpt_q8(torch, dev, d):
+    """Phase 7a: phase 3's configuration for 4 rounds with background
+    saves every 2 rounds into ``d`` (keep 1): only ``ckpt_00000004``
+    remains, its arrays file holds the state's bytes, and ``restore`` of
+    it is bit-equal to the state ``train`` returned in every leaf; the
+    save alone (snapshot on this thread, write on the writer's) and the
+    restore are timed on the host.  Then ``train`` to 6 rounds resumes
+    from it twice: bit-equal runs (losses, mask indices after every
+    round, final theta/z) with phase 3's bytes and launches in each round
+    of their kind.  Returns the saved state."""
+    import os
+    from repro_torch.dist import checkpoint as ckpt
+    r = run_path(torch, q8_engine(torch, dev), 4, 1e-2, ckpt_dir=d,
+                 ckpt_every=2, ckpt_keep=1)
+    rep = r["rep"]
+    if sorted(os.listdir(d)) != ["ckpt_00000004"]:
+        raise AssertionError(f"checkpoints left: {sorted(os.listdir(d))}")
+    check_q8_rounds(r)
+    last = ckpt.latest(d)
+    meta = ckpt.read_meta(last)
+    if meta != {"step": 4, "arch": r["eng"].cfg.name, "workers": 16,
+                "levels": [4, 4], "reconfigured": False}:
+        raise AssertionError(f"meta {meta}")
+    size = os.path.getsize(os.path.join(last, "arrays.npz"))
+    want = _ckpt_bytes(torch, r["state"])
+    if not want <= size < want + (1 << 20):
+        raise AssertionError(f"arrays.npz holds {size} bytes, the state "
+                             f"{want}")
+    t0 = time.perf_counter()
+    back, _ = ckpt.restore(last, r["state"])
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    n = _assert_states_equal(torch, back, r["state"], "7a restore")
+    del back
+    timed = os.path.join(d, "timed")
+    t0 = time.perf_counter()
+    ckpt.save(timed, r["state"], meta, background=True)
+    t_snap = time.perf_counter() - t0
+    ckpt.flush()
+    t_write = time.perf_counter() - t0 - t_snap
+    shutil.rmtree(timed)
+    free = shutil.disk_usage(d).free
+    say(f"checkpoint: {last}, arrays.npz {size} bytes ({n} leaves, state "
+        f"{want} bytes); rounds {rep.executables}, losses {rep.losses}; "
+        f"save alone: snapshot {t_snap:.3f} s on the caller's thread, "
+        f"write {t_write:.3f} s on the writer thread; restore "
+        f"{t_restore:.3f} s (load and copy to the card); free disk {free} "
+        "bytes")
+    runs = [run_path(torch, q8_engine(torch, dev), 6, 1e-2, ckpt_dir=d,
+                     ckpt_every=0) for _ in range(2)]
+    for x in runs:
+        xr = x["rep"]
+        if xr.outer_iters != 6 or xr.executables != ["dynamic", "frozen"] \
+                or xr.frozen_at != 5:
+            raise AssertionError(f"resumed run: {xr.outer_iters} rounds, "
+                                 f"{xr.executables}, frozen_at "
+                                 f"{xr.frozen_at}")
+        if not all(math.isfinite(v) for v in xr.losses):
+            raise AssertionError(f"non-finite losses {xr.losses}")
+        check_q8_rounds(x)
+    compare_runs(torch, runs[0], runs[1], "q8 resumed from step 4")
+    walls = [[round(w * 1e3, 1) for w in x["rep"].wall_times] for x in runs]
+    first = runs[0]["rep"]
+    say(f"resumed from step 4 twice: rounds 4-5 {first.executables}, "
+        f"losses {first.losses}, bytes {first.comm_bytes_internode}, "
+        f"launches {[_nz(c) for c in runs[0]['launches']]}, round wall_ms "
+        f"{walls}, whole runs {runs[0]['wall']:.2f} / "
+        f"{runs[1]['wall']:.2f} s (restore included)")
+    return r["state"]
+
+
+def elastic_q8(torch, dev, d, saved):
+    """Phase 7b: ``restore_elastic`` of phase 7a's checkpoint into W = 8 at
+    levels (2, 4): every leaf equals the saved one, or its first rows
+    where the worker dim shrank; then one round of ``train`` resumed from
+    it, with a finite loss."""
+    from repro_torch.dist import checkpoint as ckpt
+    eng, shape = q8_engine(torch, dev, levels=(2, 4))
+    t0 = time.perf_counter()
+    st, meta = ckpt.restore_elastic(ckpt.latest(d), eng.init_state_fn()(0),
+                                    8)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    rows, saved = 0, _leaves(saved)
+    for p, x in _leaves(st).items():
+        y = saved[p]
+        if x.shape != y.shape:
+            if x.shape[1:] != y.shape[1:] or x.shape[0] > y.shape[0]:
+                raise AssertionError(f"7b: leaf {p} {tuple(x.shape)} from "
+                                     f"{tuple(y.shape)}")
+            y, rows = y[:x.shape[0]], rows + 1
+        if not torch.equal(x, y):
+            raise AssertionError(f"7b: leaf {p} differs from the save")
+    del st
+    r = run_path(torch, (eng, shape), 5, 1e-2, ckpt_dir=d, ckpt_every=0)
+    rep = r["rep"]
+    if rep.executables != ["dynamic"] or not math.isfinite(rep.losses[0]):
+        raise AssertionError(f"7b round: {rep.executables} {rep.losses}")
+    say(f"elastic: W 16 -> 8 at levels (2, 4), restored in {t_restore:.3f} s"
+        f" ({rows} leaves cut to their first 8 rows, the rest equal); one "
+        f"round: loss {rep.losses[0]}, bytes {rep.comm_bytes_internode[0]}, "
+        f"launches {_nz(r['launches'][0])}, wall_ms "
+        f"{rep.wall_times[0] * 1e3:.1f}, peak {r['peak']} bytes")
+
+
+def reconfig_resume(torch, dev, d):
+    """Phase 7c: phase 3b's run with saves every 2 rounds has left its
+    step-8 checkpoint in ``d`` (its meta says reconfigured); ``train`` to
+    10 rounds resumes from it twice, straight into the budget-B engine
+    (2,797,610 parameters): reconfigured_at 8, 1,462,053 bytes and one q4
+    table launch a round (one ring), bit-equal runs."""
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    last = ckpt.latest(d)
+    meta = ckpt.read_meta(last)
+    aux = {f"masks/{r.name}/{f}" for r in build(get_config("resnet18"))
+           .plan.rules for f in ("idx", "valid", "mask", "drift")}
+    if meta["step"] != 8 or not meta["reconfigured"] \
+            or set(ckpt.load_aux(last)) != aux:
+        raise AssertionError(f"7c: checkpoint {last} meta {meta}")
+    runs = [run_reconfig(torch, dev, rounds=10, ckpt_dir=d, ckpt_every=0)
+            for _ in range(2)]
+    for x in runs:
+        rep, rc = x["rep"], x["rep"].final_engine
+        params = sum(math.prod(v) for v in rc.bundle.shapes.values())
+        if rep.executables != ["reconfigured"] * 2 \
+                or rep.reconfigured_at != 8 or rep.frozen_at != 8 \
+                or params != RECONFIGURED_PARAMS \
+                or rep.comm_bytes_internode != [RECONFIGURED_BYTES] * 2:
+            raise AssertionError(
+                f"7c: {rep.executables}, reconfigured_at "
+                f"{rep.reconfigured_at}, {params} parameters, bytes "
+                f"{rep.comm_bytes_internode}")
+        gathers, _ = round_launches(x["eng"].bundle.plan)
+        for k, c in enumerate(x["launches"]):
+            if c["fused_prox_sgd_dyn"] != 62 * 8 \
+                    or c["quantize_pack_q4"] != 1 or c["quantize_rows"] \
+                    or c["gather_groups"] != gathers or c["group_norms_sq"]:
+                raise AssertionError(f"7c round {k} launches {c}")
+        if not all(math.isfinite(v) for v in rep.losses):
+            raise AssertionError(f"non-finite losses {rep.losses}")
+    compare_runs(torch, runs[0], runs[1], "q4 reconfigured, resumed")
+    rep = runs[0]["rep"]
+    say(f"reconfigured resume from step 8 twice: stem "
+        f"{rep.final_engine.cfg.cnn_stem} stages "
+        f"{rep.final_engine.cfg.cnn_outs}, {RECONFIGURED_PARAMS} parameters"
+        f", losses {rep.losses}, bytes {rep.comm_bytes_internode}, "
+        f"launches {[_nz(c) for c in runs[0]['launches']]}, round wall_ms "
+        f"{[[round(w * 1e3, 1) for w in x['rep'].wall_times] for x in runs]}"
+        f", whole runs {runs[0]['wall']:.2f} / {runs[1]['wall']:.2f} s")
+
+
+def ft_policies():
+    """Phase 7d's two policies over W = 16: a failure window (worker 3
+    out in rounds 1-2) times a recovering straggler, and a straggler
+    scoped to one coupling class."""
+    from repro_torch.dist import ft
+    return {
+        "fail_window x straggler_decay": ft.compose(
+            ft.fail_window({3: (1, 3)}),
+            ft.straggler_decay({5: 0.25}, halflife=2)),
+        "class_scoped cnn:mid1": ft.class_scoped(
+            {"cnn:mid1": ft.straggler_decay({7: 0.25}, halflife=2)}),
+    }
+
+
+def ft_monitor(torch, dev, phase3):
+    """Phase 7d: phase 3's configuration for 4 rounds under each of
+    ``ft_policies``: the weights (and class weights) every round ran with
+    equal the policy's vectors, losses finite, phase 3's launches (q8:
+    one quantize launch a leaf, whatever the class partition).  The
+    monitor: no kernel build and one call of the round function a round,
+    in phase 3 and in these runs.  Then one resnet-smoke round with
+    class-scoped weights on the card and on the CPU from one state."""
+    from repro_torch.configs import (ConsensusSpec, HsadmmConfig,
+                                     ShapeConfig, get_config)
+    from repro_torch.core.consensus import lead_classes
+    from repro_torch.core.hsadmm import EngineSpec
+    from repro_torch.models import build
+    if phase3["builds"] or phase3["calls"] != len(phase3["rep"].losses):
+        raise AssertionError(f"monitor, phase 3: {phase3['builds']} builds, "
+                             f"{phase3['calls']} round calls for "
+                             f"{len(phase3['rep'].losses)} rounds")
+    say(f"monitor: phase 3 built {phase3['builds']} kernels and called its "
+        f"round functions {phase3['calls']} times in "
+        f"{len(phase3['rep'].losses)} rounds")
+    # the same 4 rounds without a policy, just before, for the walls
+    base = run_path(torch, q8_engine(torch, dev), 4, 1e-2)["rep"]
+    say(f"ft baseline (no policy): losses {base.losses}, round wall_ms "
+        f"{[round(w * 1e3, 1) for w in base.wall_times]}")
+    for label, pol in ft_policies().items():
+        r = run_path(torch, q8_engine(torch, dev), 4, 1e-2, ft_policy=pol)
+        rep = r["rep"]
+        if r["builds"] or r["calls"] != 4:
+            raise AssertionError(f"monitor, {label}: {r['builds']} builds, "
+                                 f"{r['calls']} round calls")
+        rules = {x.name for x in r["eng"].bundle.plan.rules}
+        for k, (w, cw) in enumerate(r["weights"]):
+            if not torch.equal(w.cpu(), torch.from_numpy(pol(k, 16))):
+                raise AssertionError(f"{label}: round {k} weights "
+                                     f"{w.tolist()}")
+            want = pol.class_weights(k, 16) \
+                if getattr(pol, "per_class", False) else None
+            if want is None:
+                if cw:
+                    raise AssertionError(f"{label}: class weights {cw}")
+                continue
+            if set(cw) != rules:
+                raise AssertionError(f"{label}: class weights of {set(cw)}")
+            for name, v in cw.items():
+                ref = torch.from_numpy(want[name]) if name in want \
+                    else torch.ones(16)
+                if not torch.equal(v.cpu(), ref):
+                    raise AssertionError(f"{label}: round {k} class {name} "
+                                         f"weights {v.tolist()}")
+        if not all(math.isfinite(v) for v in rep.losses):
+            raise AssertionError(f"{label}: losses {rep.losses}")
+        check_q8_rounds(r)
+        lead = lead_classes(r["eng"].bundle.plan)
+        classes = len({lead.get(key) for key in r["eng"].bundle.shapes})
+        cw7 = r["weights"]
+        w357 = [[round(float(w[i]), 4) for i in (3, 5, 7)] for w, _ in cw7]
+        say(f"ft {label}: losses {rep.losses}, weights of worker 3 / 5 / 7 "
+            f"by round {w357}"
+            + (f", class cnn:mid1 worker 7 "
+               f"{[round(float(c['cnn:mid1'][7]), 4) for _, c in cw7]}"
+               f" ({classes} lead classes, one group_reduce each)"
+               if getattr(pol, "per_class", False) else "")
+            + f", launches {_nz(r['launches'][1])} (round 1), round wall_ms "
+            f"{[round(w * 1e3, 1) for w in rep.wall_times]}, rounds 1-3 "
+            f"{_median(_steady(rep)):.1f} ms median against the baseline's "
+            f"{_median(_steady(base)):.1f}")
+        del r
+    hp = HsadmmConfig(rho1=1e-3, rho2=1e-4, local_steps=8,
+                      wire_inter="compact+q8")
+    b = build(get_config("resnet18", smoke=True).replace(hsadmm=hp))
+    spec = EngineSpec(plan=b.plan, consensus=ConsensusSpec((2, 2), 1),
+                      hp=hp, stack_map=tuple(b.stack_map),
+                      class_weights=True)
+
+    def scoped(st):
+        d = st["weights"].device
+        cw = dict(st["class_weights"])
+        cw["cnn:mid0"] = torch.tensor([1.0, 0.25, 1.0, 0.5], device=d)
+        cw["cnn:stem"] = torch.tensor([0.0, 1.0, 1.0, 1.0], device=d)
+        return dict(st, weights=torch.tensor([1.0, 1.0, 0.75, 1.0],
+                                             device=d),
+                    class_weights=cw)
+    smoke_round_cpu_vs_card(torch, dev, b, spec,
+                            ShapeConfig("s", "train", 16, 16),
+                            ("images", "labels"), 1e-2,
+                            "smoke round with class-scoped weights",
+                            prepare=scoped)
 
 
 # ---------------------------------------------------------------------------
@@ -2533,6 +2898,7 @@ def main(argv) -> int:
 
         full = train_full(torch, dev)
         totals = full["totals"]
+        phase3 = {k: full[k] for k in ("builds", "calls", "rep")}
         say(f"phase 3 train: ok, launches {totals}")
 
         det_on, det_off = determinism_q8(torch, dev, full)
@@ -2554,14 +2920,33 @@ def main(argv) -> int:
         del full
         say("phase 5 profile: ok")
 
+        d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            saved = ckpt_q8(torch, dev, d)
+            say("phase 7a checkpoint and resume, q8: ok")
+            elastic_q8(torch, dev, d, saved)
+            del saved
+            say("phase 7b elastic restore: ok")
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+
         rc = train_reconfig(torch, dev)
         say(f"phase 3b train with reconfiguration: ok, launches "
             f"{rc['totals']}")
         rc_rep, mem = rc["rep"], rc["mem"]
-        rc2 = train_reconfig(torch, dev)
-        compare_runs(torch, rc, rc2, "q4 with reconfiguration")
-        del rc2
-        say("phase 3b determinism: ok")
+        d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            # the second run saves every 2 rounds: saving perturbs nothing
+            rc2 = train_reconfig(torch, dev, ckpt_dir=d, ckpt_every=2,
+                                 ckpt_keep=1)
+            compare_runs(torch, rc, rc2, "q4 with reconfiguration, the "
+                         "second run saving every 2 rounds")
+            del rc2
+            say("phase 3b determinism: ok")
+            reconfig_resume(torch, dev, d)
+            say("phase 7c reconfigured resume, q4: ok")
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
 
         rc_busy, _ = profile_round(torch, rc["eng"], rc["state"],
                                    rc["shape"], label="reconfigured")
@@ -2574,6 +2959,9 @@ def main(argv) -> int:
 
         smoke_reconfig_cpu_vs_card(torch, dev)
         say("phase 4b smoke reconfigured round card vs CPU: ok")
+
+        ft_monitor(torch, dev, phase3)
+        say("phase 7d fault tolerance and the monitor: ok")
 
         kernels += check_ssd(torch, dev)
         say("phase 6 ssd_chunk_scan vs plain: ok")

@@ -57,8 +57,10 @@ def masks_from_jax(masks: dict, device=None) -> dict:
 
 def state_from_jax(state: dict, device=None) -> dict:
     """JAX H-SADMM state (numpy leaves), full-shape or reconfigured ->
-    port state: theta/mom/u, the z/v/rho lists, per-rule masks, weights
-    and the round counter k."""
+    port state: theta/mom/u, the z/v/rho lists, per-rule masks, weights,
+    per-class weights and the round counter k.  A ``wire`` entry that
+    holds no array (stateless codecs) maps to nothing; codec
+    error-feedback state has no counterpart until Top-K is ported."""
     device = resolve_device(device)
     out = {}
     for name, v in state.items():
@@ -70,10 +72,23 @@ def state_from_jax(state: dict, device=None) -> dict:
             out[name] = masks_from_jax(v, device)
         elif name in ("weights", "k"):
             out[name] = _tensor(v, device)
+        elif name == "class_weights":
+            out[name] = {rule: _tensor(a, device) for rule, a in v.items()}
+        elif name == "wire" and not _flat_any(v):
+            continue   # stateless codecs: the entry holds no array
         else:
             raise NotImplementedError(
                 f"state entry {name!r} has no counterpart in the port yet")
     return out
+
+
+def _flat_any(tree) -> bool:
+    """Does a tree of dicts and lists hold any array?"""
+    if isinstance(tree, dict):
+        return any(_flat_any(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_flat_any(v) for v in tree)
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +128,9 @@ def state_to_jax(state: dict) -> dict:
                          for rule, m in v.items()}
         elif name in ("weights", "k"):
             out[name] = v.detach().cpu().numpy()
+        elif name == "class_weights":
+            out[name] = {rule: a.detach().cpu().numpy()
+                         for rule, a in v.items()}
         else:
             raise NotImplementedError(
                 f"state entry {name!r} has no counterpart in the JAX package")

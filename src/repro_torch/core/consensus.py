@@ -14,6 +14,16 @@
 weight-normalized.  Every group exchange routes through the boundary's
 wire codec (``repro_torch.comm``).  On one card the "collectives" are
 reductions over the stacked worker dim.
+
+With ``EngineSpec.class_weights`` the exchange is partitioned by coupling
+class (``state["class_weights"]``, per rule): every leaf has a lead class,
+the first rule that touches it (:func:`lead_classes`), and is weighted by
+``weights * class_weights[lead]``; unruled leaves keep the global
+weights.  Each class is one ``group_reduce`` call, in the reference's
+sorted order (unruled leaves last), so a q4 boundary makes one
+``quantize_pack_q4`` table launch per class and ring instead of one per
+ring; q8 stays one ``quantize_rows`` launch per leaf.  All-ones class
+weights give the unscoped round's bits.
 """
 from __future__ import annotations
 
@@ -52,6 +62,17 @@ def _make_masks(state, spec, mask_src, frozen):
     return new_masks, idxs, info
 
 
+def lead_classes(plan) -> dict:
+    """{leaf key: name of the first rule that touches it}: the coupling
+    class a leaf's consensus exchange is weighted by (leaves coupled to
+    several classes ride their lead class)."""
+    out: dict = {}
+    for rule in plan.rules:
+        for la in rule.all_leaves:
+            out.setdefault(la.key, rule.name)
+    return out
+
+
 def _col(w, b):
     """(M,) weights as a column broadcasting against a (M, ...) leaf."""
     return w.reshape((-1,) + (1,) * (b.ndim - 1)).to(b.dtype)
@@ -74,16 +95,42 @@ def consensus_step(state: dict, spec: EngineSpec, frozen: bool = False,
     zs_old = state["z"]
     vs_old = state["v"]
 
-    # cumulative weights per level: wk[k] has shape (M_k,)
-    wk = [state["weights"]]
-    for g in levels:
-        wk.append(group_sum(wk[-1], g))
+    def wk_chain(wvec) -> list:
+        """Cumulative weights per level: chain[k] has shape (M_k,)."""
+        out = [wvec]
+        for g in levels:
+            out.append(group_sum(out[-1], g))
+        return out
+
+    w = state["weights"]
+    wk = wk_chain(w)
     M1 = spec.consensus.num_workers // levels[0]
+
+    # per-coupling-class weights (module doc): {class: chain of w * cw}
+    cw = state.get("class_weights") if spec.class_weights else None
+    key_class = lead_classes(plan) if cw is not None else {}
+    wk_by_class = {name: wk_chain(w * v) for name, v in cw.items()} \
+        if cw is not None else {}
+
+    def wk_for(key: str) -> list:
+        return wk_by_class.get(key_class.get(key), wk)
 
     def wire_reduce(tree: dict, k: int, g: int, lvl: int) -> dict:
         """Boundary-k weighted group exchange in that codec's format,
-        weighted by the level-``lvl`` cumulative weights."""
-        return codecs[k - 1].group_reduce(tree, g, wk[lvl])[0]
+        weighted by the level-``lvl`` cumulative weights: one call, or
+        one call per lead coupling class."""
+        codec = codecs[k - 1]
+        if cw is None:
+            return codec.group_reduce(tree, g, wk[lvl])[0]
+        parts: dict = {}
+        for key in tree:
+            parts.setdefault(key_class.get(key), []).append(key)
+        out = {}
+        for cls in sorted(parts, key=lambda c: (c is None, c or "")):
+            out.update(codec.group_reduce(
+                {key: tree[key] for key in parts[cls]}, g,
+                wk_by_class.get(cls, wk)[lvl])[0])
+        return {key: out[key] for key in tree}
 
     payload0 = {key: theta[key] + u[key] for key in theta}
 
@@ -94,7 +141,8 @@ def consensus_step(state: dict, spec: EngineSpec, frozen: bool = False,
             sn = spec.stack_ndims(key)
             r1 = bcast_rho(rho[0][key], b, sn, 1)
             num = r1 * b
-            den = r1 * _col(wk[1], b) + hp.weight_decay / max(M1, 1)
+            den = r1 * _col(wk_for(key)[1], b) \
+                + hp.weight_decay / max(M1, 1)
             if K > 1:
                 r2 = bcast_rho(rho[1][key], b, sn, 1)
                 num = num + r2 * z2v[key]
@@ -145,7 +193,7 @@ def consensus_step(state: dict, spec: EngineSpec, frozen: bool = False,
         out = {}
         for key, b in red.items():
             sn = spec.stack_ndims(key)
-            wsum = _col(wk[k], b)
+            wsum = _col(wk_for(key)[k], b)
             if k == K:                            # Eq. 11: weighted mean
                 out[key] = (b / torch.clamp_min(wsum, 1e-12)).to(b.dtype)
             else:

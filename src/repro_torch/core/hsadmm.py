@@ -8,14 +8,15 @@ State layout (the reference's, with FLAT ``{leaf key: tensor}`` trees):
                      (M_k = W / prod(levels[:k]); M_K == 1 == global z)
     rho[k]         : per-leaf tensors of shape leaf.shape[:stack_ndims]
     weights        : (W,) f32           straggler/failure contribution weights
+    class_weights  : per-rule (W,) f32  per-coupling-class weights (only
+                     with ``EngineSpec.class_weights``)
     masks          : per-rule {idx (int64), valid, mask, drift}
     k              : outer iteration counter
 
 The worker dim W is flat, outer-major over (pod, node, worker).  The
 single-worker solo mode, microbatch accumulation and the overlapped round
 wait for later slices of the port and raise ``NotImplementedError``;
-momentum-free updates and per-class straggler weights are not in its
-``EngineSpec`` yet.
+momentum-free updates are not in its ``EngineSpec`` yet.
 """
 from __future__ import annotations
 
@@ -45,6 +46,10 @@ class EngineSpec:
     # penalties/residuals (paper §3.4).
     stack_map: tuple[tuple[str, int], ...] = (("blocks", 1),)
     momentum: float = 0.9
+    # per-coupling-class straggler weights (``dist.ft.class_scoped``):
+    # adds a ``{rule: (W,)}`` weight tree to the state and partitions the
+    # wire reduce by each leaf's lead coupling class
+    class_weights: bool = False
 
     def __post_init__(self):
         if self.solo:
@@ -151,6 +156,12 @@ def init_state(params0: Params, spec: EngineSpec) -> dict:
              "weights": torch.ones((W,), dtype=torch.float32, device=device),
              "mom": {k: torch.zeros_like(x) for k, x in theta.items()},
              "u": {k: torch.zeros_like(x) for k, x in theta.items()}}
+    if spec.class_weights:
+        # multiplied into the global weights inside consensus_step; all
+        # ones gives the unscoped round's bits until a policy writes them
+        state["class_weights"] = {
+            r.name: torch.ones((W,), dtype=torch.float32, device=device)
+            for r in spec.plan.rules}
     m = W
     zs = []
     for g in levels:

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_started = 0   # nvcc runs started by this process (``builds_started``)
 
 
 def nvcc() -> str:
@@ -61,6 +62,8 @@ def _start(name: str):
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    global _started
+    _started += 1
     return proc, tmp, out
 
 
@@ -94,6 +97,12 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
         return lib
+
+
+def builds_started() -> int:
+    """How many ``nvcc`` runs this process has started: the port's only
+    compilations (``repro_torch.dist.monitor.compile_count`` reads it)."""
+    return _started
 
 
 def check(err: int, what: str) -> None:

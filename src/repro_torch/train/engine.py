@@ -10,8 +10,10 @@ the reference does: TF32 is switched off for both.
 
 Physical reconfiguration (:meth:`Engine.reconfigure`) builds the engine
 of the budget-B model and migrates the whole state onto it on the same
-device.  Overlapped rounds, class-scoped weights and the compiled-HLO
-introspection wait for later slices of the port.
+device.  :meth:`Engine.with_class_weights` gives an engine whose
+consensus carries per-coupling-class weights (``dist.ft.class_scoped``
+policies).  Overlapped rounds and the compiled-HLO introspection wait for
+later slices of the port.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ class Engine:
     def __init__(self, bundle: ModelBundle,
                  shape: Optional[ShapeConfig] = None,
                  consensus: Optional[ConsensusSpec] = None,
-                 device=None):
+                 device=None, class_weights: bool = False):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -50,13 +52,14 @@ class Engine:
         self.cfg = bundle.cfg
         self.shape = shape
         self.consensus = consensus or self.cfg.consensus
+        self.class_weights = class_weights
         if self.cfg.hsadmm.staleness != 0:
             raise NotImplementedError(
                 f"staleness={self.cfg.hsadmm.staleness}: overlapped rounds "
                 "come in a later slice of the PyTorch port")
         self.spec = EngineSpec(
             plan=bundle.plan, consensus=self.consensus, hp=self.cfg.hsadmm,
-            stack_map=tuple(bundle.stack_map))
+            stack_map=tuple(bundle.stack_map), class_weights=class_weights)
         # set by reconfigure(): the full-shape parent engine and the frozen
         # full-shape mask state the reconfiguration was derived from
         self.parent: Optional["Engine"] = None
@@ -79,8 +82,24 @@ class Engine:
             else hp.wire_map)
         bundle = dataclasses.replace(self.bundle,
                                      cfg=self.cfg.replace(hsadmm=hp))
+        return self._derive(bundle)
+
+    def with_class_weights(self, enabled: bool = True) -> "Engine":
+        """A new Engine whose consensus carries per-coupling-class
+        straggler weights (``dist.ft.class_scoped`` policies).  This
+        changes the STATE STRUCTURE (adds a ``class_weights`` tree): init
+        the state through the new engine."""
+        return self._derive(self.bundle, class_weights=enabled)
+
+    def _derive(self, bundle: ModelBundle, *,
+                class_weights: Optional[bool] = None) -> "Engine":
+        """A sibling Engine over ``bundle`` (same shape, hierarchy and
+        device) that keeps the reconfiguration lineage (parent and frozen
+        masks)."""
         eng = Engine(bundle, self.shape, consensus=self.consensus,
-                     device=self.device)
+                     device=self.device,
+                     class_weights=self.class_weights
+                     if class_weights is None else class_weights)
         eng.parent, eng.frozen_masks = self.parent, self.frozen_masks
         return eng
 
@@ -136,7 +155,7 @@ class Engine:
         bundle2 = dataclasses.replace(build(new_cfg), cfg=new_cfg,
                                       plan=new_plan)
         eng2 = Engine(bundle2, self.shape, consensus=self.consensus,
-                      device=self.device)
+                      device=self.device, class_weights=self.class_weights)
         eng2.parent = self
         eng2.frozen_masks = {
             name: {f: t.to(self.device) for f, t in m.items()}

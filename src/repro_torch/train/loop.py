@@ -21,12 +21,28 @@ budget-B model (``Engine.reconfigure``) and runs the frozen round of the
 reconfigured engine from then on.  A model family without a width mapping
 (the SSM) refuses ``reconfig`` before the first round.
 
-Options that later slices of the port bring (checkpoints, fault-tolerance
-policies, automatic wire selection, compiled-HLO statistics, overlapped
-rounds, the per-step dispatch path) raise ``NotImplementedError``.
+Checkpoints (``repro_torch.dist.checkpoint``, the reference's on-disk
+layout): with ``RunConfig.ckpt_dir`` the loop saves the state after a
+drain every ``ckpt_every`` rounds, in the background, with the run's meta
+and, after a reconfiguration, the frozen full-shape masks as aux arrays;
+``train`` returns once every save is on disk.  With ``resume`` it
+restores the newest checkpoint first, elastically (the worker count may
+differ), and a reconfigured save straight into the reconfigured engine
+rebuilt from its aux masks.  As in the reference, a resumed run restarts
+the synthetic stream from its first batch.  Save host time is kept out of
+the round walls.
+
+Fault tolerance (``repro_torch.dist.ft``): ``RunConfig.ft_policy`` writes
+``state["weights"]`` before every round, and a class-scoped policy also
+``state["class_weights"]`` (switching the engine to per-class weights).
+
+Options that later slices of the port bring (automatic wire selection,
+compiled-HLO statistics, overlapped rounds, the per-step dispatch path)
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
@@ -37,6 +53,7 @@ from ..configs.base import ShapeConfig
 from ..core.shrinkage import mask_sync_bytes, plan_bytes
 from ..data.pipeline import batches, prefetch, superbatches
 from ..data.synthetic import make_stream
+from ..dist import checkpoint as ckpt
 from ..models import can_shrink
 from .engine import Engine
 
@@ -70,6 +87,55 @@ class RunConfig:
     reconfig: bool = False
     reconfig_patience: Optional[int] = None
     log: Optional[Callable] = print
+
+    # JSON: process-local callables (eval_fn, log) are not serialized;
+    # ft_policy serializes by its canonical dist.ft spec string
+    _JSON_SKIP = ("eval_fn", "log")
+
+    def to_json(self) -> dict:
+        """Plain-JSON dict of this run (the reference's), bit-stable
+        through :meth:`from_json`."""
+        out = {}
+        for f in dataclasses.fields(self):
+            if f.name in self._JSON_SKIP:
+                continue
+            v = getattr(self, f.name)
+            if f.name == "shape":
+                v = dataclasses.asdict(v)
+            elif f.name == "ft_policy" and v is not None:
+                spec = getattr(v, "spec", None)
+                if spec is None:
+                    raise ValueError(
+                        "RunConfig.ft_policy is not serializable: build "
+                        "it through the repro_torch.dist.ft factories (they "
+                        "attach a canonical .spec) or ft.from_spec")
+                v = spec
+            elif f.name == "wire_map" and v is not None:
+                v = list(v)
+            out[f.name] = v
+        return out
+
+    @staticmethod
+    def from_json(d: dict) -> "RunConfig":
+        """Inverse of :meth:`to_json` (eval_fn/log take their defaults).
+        Unknown keys raise."""
+        from ..dist import ft
+        d = dict(d)
+        shape = ShapeConfig(**d.pop("shape"))
+        ft_spec = d.pop("ft_policy", None)
+        wm = d.pop("wire_map", None)
+        known = {f.name for f in dataclasses.fields(RunConfig)
+                 if f.name not in RunConfig._JSON_SKIP + ("shape",
+                                                          "ft_policy",
+                                                          "wire_map")}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(f"unknown RunConfig JSON keys: "
+                             f"{sorted(unknown)}")
+        return RunConfig(
+            shape=shape,
+            ft_policy=ft.from_spec(ft_spec) if ft_spec else None,
+            wire_map=tuple(wm) if wm is not None else None, **d)
 
 
 @dataclass
@@ -131,9 +197,24 @@ def round_comm_bytes(engine: Engine) -> tuple[int, int, int]:
     return dense_eq, base + mask_b, base
 
 
+def _masks_aux(masks: dict, plan) -> dict:
+    """Frozen full-shape mask state as flat checkpoint aux arrays."""
+    return {f"masks/{r.name}/{f}": v for r in plan.rules
+            for f, v in masks[r.name].items()}
+
+
+def _masks_from_aux(aux: dict, plan, device) -> dict:
+    """Inverse of :func:`_masks_aux` on ``device`` (int64 indices)."""
+    out = {}
+    for r in plan.rules:
+        m = {f: torch.from_numpy(aux[f"masks/{r.name}/{f}"]).to(device)
+             for f in ("idx", "valid", "mask", "drift")}
+        m["idx"] = m["idx"].long()
+        out[r.name] = m
+    return out
+
+
 _LATER = {
-    "ckpt_dir": "checkpointing",
-    "ft_policy": "fault-tolerance policies",
     "wire_auto": "automatic wire selection",
     "hlo_stats": "collective statistics",
 }
@@ -171,6 +252,21 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
     if run.wire_intra or run.wire_inter or run.wire_map:
         engine = engine.with_wire(run.wire_intra, run.wire_inter,
                                   run.wire_map)
+    per_class = run.ft_policy is not None \
+        and getattr(run.ft_policy, "per_class", False)
+    if per_class and not engine.class_weights:
+        engine = engine.with_class_weights(True)
+        if log:
+            log("[loop] class-scoped ft policy: enabled per-class "
+                "consensus weights")
+    if per_class:
+        rule_names = {r.name for r in engine.bundle.plan.rules}
+        unknown = set(run.ft_policy.class_weights(0, engine.workers)) \
+            - rule_names
+        if unknown:
+            raise ValueError(
+                f"class-scoped ft policy names unknown coupling classes "
+                f"{sorted(unknown)}; plan has {sorted(rule_names)}")
     hp = engine.cfg.hsadmm
     E = max(hp.local_steps, 1)
     stream = make_stream(engine.cfg, run.shape, engine.workers,
@@ -182,23 +278,53 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
         else hp.reconfig_patience
     rc_engine = None   # the reconfigured engine once the migration ran
 
-    state = engine.init_state_fn()(run.seed)
+    state = None
+    start_k = 0
+    if run.ckpt_dir and run.resume:
+        last = ckpt.latest(run.ckpt_dir)
+        if last is not None:
+            restore_eng = engine
+            if ckpt.read_meta(last).get("reconfigured"):
+                # the save is at shrunk shapes: rebuild the reconfigured
+                # engine from the aux masks and restore straight into it
+                masks_full = _masks_from_aux(ckpt.load_aux(last),
+                                             engine.bundle.plan,
+                                             engine.device)
+                rc_engine, _ = engine.reconfigure(masks=masks_full)
+                restore_eng = rc_engine
+                round_frz = rc_engine.round_step_fn(frozen=True)
+            state, meta = ckpt.restore_elastic(
+                last, restore_eng.init_state_fn()(run.seed), engine.workers)
+            start_k = int(meta["step"])
+            if log:
+                log(f"[loop] resumed from {last} at outer iter {start_k}"
+                    + (" (reconfigured)" if rc_engine is not None else ""))
+    if state is None:
+        state = engine.init_state_fn()(run.seed)
     dense_eq_b, dyn_b, frz_b = round_comm_bytes(engine)
     report = TrainReport(wire_map=[c.name for c in engine.spec.codecs])
+    if rc_engine is not None:
+        _, _, frz_b = round_comm_bytes(rc_engine)
+        report.wire_map_reconfigured = \
+            [c.name for c in rc_engine.spec.codecs]
 
-    frozen = False
+    frozen = rc_engine is not None   # a reconfigured resume is frozen
+    if frozen:
+        report.frozen_at = start_k
+        report.reconfigured_at = start_k
     stop = False
     eta = torch.tensor(run.eta, dtype=torch.float32, device=engine.device)
     metrics_every = max(run.metrics_every, 1)
     pending: list = []   # [(k, was_frozen, RoundMetrics-on-device)]
     t_block = time.perf_counter()
-    host_overhead = 0.0  # eval host time, excluded from round walls
+    host_overhead = 0.0  # save/eval host time, excluded from round walls
 
     def drain():
         """Read all pending RoundMetrics in one host sync; update the
         report and the drift-freeze / convergence decisions.  The sync
         waits for every pending round, so the elapsed time since the last
-        drain (minus eval time) is spread evenly over the drained rounds."""
+        drain (minus save and eval time) is spread evenly over the drained
+        rounds."""
         nonlocal frozen, stop, t_block, host_overhead
         if not pending:
             return
@@ -234,7 +360,7 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
         host_overhead = 0.0
         t_block = time.perf_counter()
 
-    for k in range(run.outer_iters):
+    for k in range(start_k, run.outer_iters):
         if run.reconfig and frozen and rc_engine is None \
                 and report.frozen_at is not None \
                 and k - report.frozen_at >= patience:
@@ -259,6 +385,15 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
             if log:
                 log(f"[loop] physically reconfigured at outer iter {k}: "
                     f"frozen-round payload {frz_b / 1e6:.2f}MB/round")
+        if run.ft_policy is not None:
+            state = dict(state, weights=_weights(
+                run.ft_policy(k, engine.workers), engine.device))
+            if per_class:
+                cw = dict(state["class_weights"])
+                for name, v in run.ft_policy.class_weights(
+                        k, engine.workers).items():
+                    cw[name] = _weights(v, engine.device)
+                state["class_weights"] = cw
         was_frozen = frozen
         state, m = (round_frz if frozen else round_dyn)(state, next(it), eta)
         pending.append((k, was_frozen, m))
@@ -281,9 +416,30 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
 
         if (k + 1) % metrics_every == 0 or k == run.outer_iters - 1:
             drain()
+        if run.ckpt_dir and run.ckpt_every > 0 \
+                and (k + 1) % run.ckpt_every == 0:
+            drain()   # attribute pending compute before the host copy
+            t_c = time.perf_counter()
+            ckpt.save(run.ckpt_dir, state,
+                      {"step": k + 1, "arch": engine.cfg.name,
+                       "workers": engine.workers,
+                       "levels": list(engine.consensus.levels),
+                       "reconfigured": rc_engine is not None},
+                      keep=run.ckpt_keep, background=True,
+                      aux=_masks_aux(rc_engine.frozen_masks,
+                                     engine.bundle.plan)
+                      if rc_engine is not None else None)
+            host_overhead += time.perf_counter() - t_c
         if stop:
             break
     drain()
     it.close()   # stops the prefetch thread and frees the batches it holds
     report.final_engine = rc_engine if rc_engine is not None else engine
+    if run.ckpt_dir:
+        ckpt.flush()   # background saves are on disk once train() returns
     return state, report
+
+
+def _weights(v, device) -> torch.Tensor:
+    """A policy's (W,) weight vector as an f32 tensor on ``device``."""
+    return torch.as_tensor(v, dtype=torch.float32).to(device)

@@ -98,10 +98,8 @@ def test_engine_runs_on_the_card_unless_asked():
 
 
 @pytest.mark.parametrize("option", [
-    {"ckpt_dir": "x"}, {"reconfig": True, "ckpt_dir": "x"},
     {"wire_auto": True},
     {"hlo_stats": True}, {"staleness": 1}, {"fused_rounds": False},
-    {"ft_policy": lambda k, w: None},
 ])
 def test_unported_options_refuse(option):
     bundle = t_build(t_get_config("resnet18", smoke=True))
