@@ -10,6 +10,8 @@
                                     # encodes' at ResNet's (no result line)
     python3 chip_smoke.py --rounds  # phase 1, then phases 3b and 3's
                                     # runs alone, timed (no result line)
+    python3 chip_smoke.py --baselines  # phases 1 and 8 alone (no result
+                                       # line)
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -122,7 +124,28 @@ Phases (any failure exits non-zero and prints no result line):
 6b. phase 6a again, bit-equal; its first two rounds under
    ``torch.use_deterministic_algorithms``, kernel route against plain
    route, bit-equal as well;
-6c. one mamba2 smoke round on the card and on the CPU from one state.
+6c. one mamba2 smoke round on the card and on the CPU from one state;
+8a. the paper's baselines at full width through
+   ``repro_torch.train.baselines``: ``ddp_train``, ``topk_train(rate=0.01)``
+   and ``codec_train(codec="q8")``, resnet18, W = 16, 32 images a worker,
+   rounds of E = 8 steps, eta 1e-2, seed 0, 3 rounds each, run twice:
+   bytes a step 44,695,848 / 14,300,544 / 11,300,186, no hand-written
+   kernel launched by the dense and Top-K trainers and one quantize_rows
+   launch a leaf and step by the q8 one (counts zeroed just before each
+   run), the two runs' losses and final params bit-equal; the median
+   steady round (rounds 2-3), images per second, peak memory, and the
+   Top-K sparsify's device time (its calls bracketed by CUDA events) as a
+   share of a steady Top-K step;
+8b. H-SADMM over a compact+topk:0.01 inter-node wire (phase 3's
+   configuration otherwise) for 4 rounds, saving at round 4: 224,720
+   bytes a dynamic and 223,760 a frozen round, phase 3's prox, gather and
+   group-norm launches and no quantize launch; the restore bit-equal in
+   every leaf, the 62 wire residuals among them; ``train`` to 5 rounds
+   resumed twice, bit-equal, residuals too; the restored state migrated
+   onto the budget-B ResNet and one frozen round there, loss finite;
+8c. one resnet-smoke DDP round on the card and on the CPU (rtol 1e-4),
+   and ``TopKCodec.group_reduce`` on identical inputs: selection and
+   residuals bit-equal.
 
 ``--wire`` runs phase 1, then phase 2's quantize_rows, quantize_pack_q4
 (ResNet only), gather_groups and group_norms_sq checks and times at the
@@ -2839,10 +2862,305 @@ def smoke_mamba_cpu_vs_card(torch, dev):
                             ("tokens",), 1e-3, "mamba2 smoke round")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the paper's baselines and the top-k wire through H-SADMM
+# ---------------------------------------------------------------------------
+
+BASELINE_ROUNDS = 3
+BASELINE_BYTES = {"ddp": 44_695_848, "topk": 14_300_544, "q8": 11_300_186}
+TOPK_ROUND_BYTES = (224_720, 223_760)   # compact+topk:0.01, dynamic/frozen
+
+
+def baseline_trainer(name):
+    """(trainer, keywords) of a phase 8a trainer."""
+    from repro_torch.train import baselines
+    return {"ddp": (baselines.ddp_train, {}),
+            "topk": (baselines.topk_train, {"rate": 0.01}),
+            "q8": (baselines.codec_train, {"codec": "q8"})}[name]
+
+
+def run_baseline(torch, dev, name, rounds=BASELINE_ROUNDS, timed=False):
+    """One phase 8a trainer on full-width resnet18 (W = 16, 32 images a
+    worker, rounds of E = 8 steps, eta 1e-2, seed 0) through the port's
+    entry point, launch counts zeroed just before and read after, the
+    peak over the run.  ``timed`` brackets every ``TopKCodec._sparsify``
+    call (one a leaf and step) with CUDA events on the stream: their
+    device time is the top-k selection's and error feedback's."""
+    from repro_torch.comm import TopKCodec
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    fn, kw = baseline_trainer(name)
+    bundle = build(get_config("resnet18"))
+    shape = ShapeConfig("chip_smoke", "train", 32, 32 * 16)
+    events = []
+    real = TopKCodec._sparsify
+
+    def sparsify(self, x, e):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(self, x, e)
+        b.record()
+        events.append((a, b))
+        return out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with (patched(TopKCodec, "_sparsify", sparsify) if timed
+          else contextlib.nullcontext()):
+        params, rep = fn(bundle, 16, shape, steps=8 * rounds, eta=1e-2,
+                         seed=0, round_steps=8, device=dev, **kw)
+    torch.cuda.synchronize()
+    return {"params": params, "rep": rep, "wall": time.perf_counter() - t0,
+            "peak": torch.cuda.max_memory_allocated(),
+            "launches": ops.launch_counts(), "events": events,
+            "leaves": len(params)}
+
+
+def baselines_full(torch, dev) -> dict:
+    """Phase 8a: ``ddp_train``, ``topk_train(rate=0.01)`` and
+    ``codec_train(codec="q8")`` for 3 rounds each, twice: bytes a step
+    44,695,848 / 14,300,544 / 11,300,186, finite losses, no hand-written
+    kernel launched by the dense and top-k trainers and one
+    ``quantize_rows`` launch a leaf and step by the q8 one; the two runs'
+    losses and final params bit-equal.  Prints each trainer's median
+    steady round (rounds 2-3), images per second and peak memory, and the
+    top-k sparsify's share of a steady Top-K step.  Returns {trainer:
+    numbers}."""
+    out = {}
+    for name in ("ddp", "topk", "q8"):
+        a = run_baseline(torch, dev, name, timed=name == "topk")
+        b = run_baseline(torch, dev, name)
+        for r in (a, b):
+            rep = r["rep"]
+            steps = 8 * BASELINE_ROUNDS
+            got = sorted(set(rep.comm_bytes_internode))
+            if len(rep.comm_bytes_internode) != steps \
+                    or got != [BASELINE_BYTES[name]]:
+                raise AssertionError(f"8a {name}: bytes a step {got}")
+            if len(rep.losses) != steps \
+                    or not all(math.isfinite(x) for x in rep.losses):
+                raise AssertionError(f"8a {name}: losses {rep.losses}")
+            want = {"quantize_rows": r["leaves"] * steps} if name == "q8" \
+                else {}
+            if _nz(r["launches"]) != want:
+                raise AssertionError(f"8a {name}: launches "
+                                     f"{_nz(r['launches'])}, expected {want}")
+        if a["rep"].losses != b["rep"].losses:
+            raise AssertionError(f"8a {name}: losses differ between runs: "
+                                 f"{a['rep'].losses} vs {b['rep'].losses}")
+        d = _first_diff(torch, a["params"], b["params"])
+        if d:
+            raise AssertionError(f"8a {name}: final {d[0]} differs by up to "
+                                 f"{d[1]}")
+        rounds = [[w * 8e3 for w in r["rep"].wall_times[::8]]
+                  for r in (a, b)]
+        med = _median(rounds[0][1:] + rounds[1][1:])
+        row = {"bytes_per_step": BASELINE_BYTES[name],
+               "round_ms": rounds, "steady_median_ms": med,
+               "images_per_s": 16 * 32 * 8 / (med / 1e3),
+               "peak_bytes": [a["peak"], b["peak"]],
+               "losses": a["rep"].losses[::8] + a["rep"].losses[-1:]}
+        if name == "topk":
+            steady = a["events"][a["leaves"] * 8:]
+            per_step = sum(x.elapsed_time(y) for x, y in steady) \
+                / (8 * (BASELINE_ROUNDS - 1))
+            step_ms = _median(rounds[0][1:]) / 8
+            row.update(sparsify_ms_per_step=per_step,
+                       sparsify_launch_pairs=len(a["events"]),
+                       sparsify_share=per_step / step_ms)
+        say(f"8a {name}: {json.dumps(row)}")
+        say(f"8a {name}: two runs from seed 0 bit-equal in losses and final "
+            f"params ({a['leaves']} leaves); launches {_nz(a['launches'])}")
+        out[name] = row
+        del a, b
+    return out
+
+
+def topk_engine(torch, dev, levels=(4, 4)):
+    """Phase 8b's engine: phase 3's with a compact+topk:0.01 inter-node
+    wire."""
+    eng, shape = q8_engine(torch, dev, levels)
+    return eng.with_wire(inter="compact+topk:0.01"), shape
+
+
+def check_topk_rounds(r):
+    """Every round of a phase 8b run: bytes of its kind, phase 3's prox,
+    gather and group-norm launches, and no quantize launch."""
+    rep, launches = r["rep"], r["launches"]
+    gathers, views = round_launches(r["eng"].bundle.plan)
+    leaves = len(r["state"]["theta"])
+    for k, c in enumerate(launches):
+        dyn = rep.executables[k] == "dynamic"
+        if rep.comm_bytes_internode[k] != TOPK_ROUND_BYTES[0 if dyn else 1]:
+            raise AssertionError(f"8b round {k} bytes "
+                                 f"{rep.comm_bytes_internode[k]}")
+        want = {"fused_prox_sgd_dyn": leaves * 8, "gather_groups": gathers}
+        if dyn:
+            want["group_norms_sq"] = views
+        if _nz(c) != want:
+            raise AssertionError(f"8b round {k} launches {_nz(c)}, "
+                                 f"expected {want}")
+
+
+def _wire_leaves(state) -> dict:
+    return _leaves({"wire": state["wire"]})
+
+
+def topk_hsadmm(torch, dev, d):
+    """Phase 8b: H-SADMM over a compact+topk:0.01 inter-node wire at
+    levels (4, 4), 4 rounds (masks frozen at round 3) saving at round 4;
+    the restore is bit-equal in every leaf, the wire residuals among
+    them; ``train`` to 5 rounds resumes from it twice, bit-equal (wire
+    residuals too); then the restored state is migrated onto the budget-B
+    ResNet and one frozen round runs there, its loss finite."""
+    from repro_torch.data.pipeline import batches, superbatches
+    from repro_torch.data.synthetic import make_stream
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.train.loop import round_comm_bytes
+    r = run_path(torch, topk_engine(torch, dev), 4, 1e-2, ckpt_dir=d,
+                 ckpt_every=4, ckpt_keep=1)
+    rep = r["rep"]
+    if rep.frozen_at != 3 or rep.wire_map != ["dense", "compact+topk:0.01"] \
+            or not all(math.isfinite(x) for x in rep.losses):
+        raise AssertionError(f"8b: frozen_at {rep.frozen_at}, wire "
+                             f"{rep.wire_map}, losses {rep.losses}")
+    if round_comm_bytes(r["eng"]) != (44_695_848,) + TOPK_ROUND_BYTES:
+        raise AssertionError(f"8b bytes {round_comm_bytes(r['eng'])}")
+    check_topk_rounds(r)
+    wire = _wire_leaves(r["state"])
+    if len(wire) != len(r["state"]["theta"]) \
+            or not all(k.startswith("wire/1/") for k in wire) \
+            or not any(bool(t.any()) for t in wire.values()):
+        raise AssertionError(f"8b: wire residuals {sorted(wire)[:3]}...")
+    say(f"8b train: rounds {rep.executables}, losses {rep.losses}, bytes "
+        f"{rep.comm_bytes_internode}, round wall_ms "
+        f"{[round(w * 1e3, 1) for w in rep.wall_times]}, launches "
+        f"{[_nz(c) for c in r['launches']]}, peak {r['peak']} bytes, "
+        f"{len(wire)} residual leaves "
+        f"({sum(t.numel() for t in wire.values())} values)")
+    t0 = time.perf_counter()
+    back, _ = ckpt.restore(ckpt.latest(d), r["state"])
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    n = _assert_states_equal(torch, back, r["state"], "8b restore")
+    say(f"8b checkpoint: restore bit-equal in {n} leaves ({len(wire)} wire "
+        f"residuals) in {t_restore:.3f} s")
+    del r
+    runs = [run_path(torch, topk_engine(torch, dev), 5, 1e-2, ckpt_dir=d,
+                     ckpt_every=0) for _ in range(2)]
+    for x in runs:
+        if x["rep"].outer_iters != 5 or x["rep"].executables != ["dynamic"] \
+                or not all(math.isfinite(v) for v in x["rep"].losses):
+            raise AssertionError(f"8b resumed: {x['rep'].executables}, "
+                                 f"losses {x['rep'].losses}")
+        check_topk_rounds(x)
+    compare_runs(torch, runs[0], runs[1], "compact+topk:0.01 resumed from "
+                 "step 4")
+    d8 = _first_diff(torch, _wire_leaves(runs[0]["state"]),
+                     _wire_leaves(runs[1]["state"]))
+    if d8:
+        raise AssertionError(f"8b resumed: residual {d8[0]} differs")
+    say(f"8b resumed twice: losses {runs[0]['rep'].losses}, wire residuals "
+        "bit-equal, round wall_ms "
+        f"{[round(x['rep'].wall_times[0] * 1e3, 1) for x in runs]}")
+    del runs
+    eng, shape = topk_engine(torch, dev)
+    t0 = time.perf_counter()
+    eng2, st2 = eng.reconfigure(back)
+    torch.cuda.synchronize()
+    t_mig = time.perf_counter() - t0
+    del back
+    sb = next(superbatches(batches(make_stream(eng2.cfg, shape, 16,
+                                               device=dev)), 8))
+    st2, m = eng2.round_step_fn(frozen=True)(
+        st2, sb, torch.tensor(1e-2, device=dev))
+    loss = m.losses[-1].item()
+    b2 = round_comm_bytes(eng2)
+    if not math.isfinite(loss) or b2[2] != TOPK_ROUND_BYTES[1]:
+        raise AssertionError(f"8b reconfigured round: loss {loss}, bytes "
+                             f"{b2}")
+    say(f"8b reconfigured: {sum(t.numel() for t in st2['z'][-1].values())} "
+        f"parameters, migration {t_mig:.3f} s, one frozen round loss "
+        f"{loss:.6f}, bytes {b2[2]}, residual leaves "
+        f"{len(_wire_leaves(st2))}")
+
+
+def baselines_cpu_vs_card(torch, dev):
+    """Phase 8c: one resnet-smoke DDP round (W = 4, E = 8, eta 1e-2) on the
+    card and on the CPU: losses and params within rtol 1e-4; and
+    ``TopKCodec.group_reduce`` (rate 0.01, weighted, from a nonzero
+    residual) on identical inputs at full-width leaf shapes, Gaussian and
+    tied: the selection and the residuals bit-equal, the sums within rtol
+    1e-6."""
+    import numpy as np
+    from repro_torch.comm import TopKCodec, topk_mask
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models import build
+    from repro_torch.train.baselines import ddp_train
+    bundle = build(get_config("resnet18", smoke=True))
+    shape = ShapeConfig("s", "train", 16, 16)
+    out = {str(x): ddp_train(bundle, 4, shape, steps=8, eta=1e-2,
+                             round_steps=8, device=x)
+           for x in ("cpu", dev)}
+    (pc, rc), (pg, rg) = out["cpu"], out[str(dev)]
+    np.testing.assert_allclose(rg.losses, rc.losses, rtol=1e-4)
+    worst = 0.0
+    for k in pc:
+        x, y = pc[k].numpy(), pg[k].cpu().numpy()
+        np.testing.assert_allclose(y, x, rtol=1e-4, atol=1e-6, err_msg=k)
+        worst = max(worst, float(np.max(np.abs(y - x))))
+    gen = torch.Generator().manual_seed(0)
+    shapes = {"conv": (4, 3, 3, 256, 256), "fc_w": (4, 512, 10),
+              "gn": (4, 512)}
+    tree = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+    tree["tied"] = torch.randint(-3, 4, (4, 64, 64), generator=gen).float()
+    state = {k: 0.1 * torch.randn(x.shape, generator=gen)
+             for k, x in tree.items()}
+    w = torch.linspace(0.5, 1.5, 4)
+    codec = TopKCodec(0.01)
+    red_c, st_c = codec.group_reduce(tree, 2, w, state)
+    red_g, st_g = codec.group_reduce(
+        {k: x.to(dev) for k, x in tree.items()}, 2, w.to(dev),
+        {k: x.to(dev) for k, x in state.items()})
+    for k in tree:
+        flat = (tree[k] * w.reshape((-1,) + (1,) * (tree[k].ndim - 1))
+                + state[k]).reshape(4, -1).abs()
+        kk = codec.k_of(flat.shape[-1])
+        if not torch.equal(topk_mask(flat, kk),
+                           topk_mask(flat.to(dev), kk).cpu()):
+            raise AssertionError(f"8c top-k selection of {k} differs")
+        if not torch.equal(st_c[k], st_g[k].cpu()):
+            raise AssertionError(f"8c top-k residual of {k} differs")
+        np.testing.assert_allclose(red_g[k].cpu().numpy(),
+                                   red_c[k].numpy(), rtol=1e-6, err_msg=k)
+    say(f"8c DDP smoke round card vs CPU: losses and params within rtol 1e-4 "
+        f"(max abs diff {worst}); top-k selection and residuals bit-equal "
+        f"on {sorted(tree)}")
+
+
+def baselines_phase(torch, dev):
+    """Phase 8 (``--baselines`` runs it alone after phase 1)."""
+    out = baselines_full(torch, dev)
+    say("phase 8a baselines at full width: ok")
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        topk_hsadmm(torch, dev, d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    say("phase 8b H-SADMM over compact+topk:0.01: ok")
+    baselines_cpu_vs_card(torch, dev)
+    say("phase 8c baselines card vs CPU: ok")
+    return out
+
+
 def main(argv) -> int:
-    if argv not in ([], ["--ssd"], ["--wire"], ["--rounds"]):
-        return fail("usage: chip_smoke.py [--ssd | --wire | --rounds] "
-                    f"(got {argv})")
+    if argv not in ([], ["--ssd"], ["--wire"], ["--rounds"],
+                    ["--baselines"]):
+        return fail("usage: chip_smoke.py [--ssd | --wire | --rounds | "
+                    f"--baselines] (got {argv})")
     try:
         import torch
     except ImportError:
@@ -2872,9 +3190,14 @@ def main(argv) -> int:
         for name, log in logs.items():
             for line in ptxas_lines(log):
                 say(f"  ptxas {name}: {line}")
-        if argv:   # --ssd: phase 6; --wire: the wire kernels; --rounds
-            kernels = {"--ssd": check_ssd, "--wire": wire_phase,
-                       "--rounds": rounds_phase}[argv[0]](torch, dev)
+        if argv:   # --ssd: phase 6; --wire: the wire kernels; --rounds;
+            # --baselines: phase 8
+            if argv[0] == "--baselines":
+                baselines_phase(torch, dev)
+                kernels = []
+            else:
+                kernels = {"--ssd": check_ssd, "--wire": wire_phase,
+                           "--rounds": rounds_phase}[argv[0]](torch, dev)
             for line in smi:
                 say(line)
             say(json.dumps({"kernels": kernels}))
@@ -2981,6 +3304,8 @@ def main(argv) -> int:
         smoke_mamba_cpu_vs_card(torch, dev)
         say("phase 6c mamba2 smoke round card vs CPU: ok")
 
+        base = baselines_phase(torch, dev)
+
         # the main paths' end-to-end numbers again, next to the result
         say("summary: round wall_ms "
             f"{[round(w * 1e3, 1) for w in rep.wall_times]}, losses "
@@ -3001,6 +3326,13 @@ def main(argv) -> int:
             f"{[round(x, 4) for x in m_rep.losses]}, frozen_at "
             f"{m_rep.frozen_at}, peak {m_peak} bytes, device busy "
             f"{m_busy:.1f}% of a frozen round's span")
+        say("summary baselines: " + ", ".join(
+            f"{n} steady median {b['steady_median_ms']:.1f} ms, "
+            f"{b['images_per_s']:.0f} images/s, peak {max(b['peak_bytes'])} "
+            f"bytes, {b['bytes_per_step']} bytes a step" for n, b in
+            base.items()) + f"; top-k sparsify "
+            f"{base['topk']['sparsify_ms_per_step']:.2f} ms a step, "
+            f"{100 * base['topk']['sparsify_share']:.1f}% of a Top-K step")
     except Exception as e:   # any phase failing fails the run, loudly
         import traceback
         traceback.print_exc()

@@ -7,13 +7,14 @@
     payload_b = codec.wire_bytes(leaf.shape, "float32")
 """
 from .codec import (INDEX_BYTES, CompactMarker, CompositeCodec, DenseCodec,
-                    Q4Codec, Q8Codec, WireCodec, collective_wire_bytes,
-                    compose, get_codec, group_sum, leaf_bytes, level_codecs,
-                    list_codecs, register_codec)
+                    Q4Codec, Q8Codec, TopKCodec, WireCodec,
+                    collective_wire_bytes, compose, get_codec, group_sum,
+                    leaf_bytes, level_codecs, list_codecs, register_codec,
+                    topk_mask)
 
 __all__ = [
     "INDEX_BYTES", "CompactMarker", "CompositeCodec", "DenseCodec",
-    "Q4Codec", "Q8Codec", "WireCodec", "collective_wire_bytes", "compose",
-    "get_codec", "group_sum", "leaf_bytes", "level_codecs", "list_codecs",
-    "register_codec",
+    "Q4Codec", "Q8Codec", "TopKCodec", "WireCodec", "collective_wire_bytes",
+    "compose", "get_codec", "group_sum", "leaf_bytes", "level_codecs",
+    "list_codecs", "register_codec", "topk_mask",
 ]

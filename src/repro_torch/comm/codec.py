@@ -16,11 +16,17 @@ Registered codecs: ``dense`` (param-dtype payloads, the paper), ``q8``
 exchange, f32 accumulation), ``q4`` (packed 4-bit, two channels per
 byte, through the hand-written q4 kernels; nibble-plane ring) and the
 ``compact`` marker, which composes with one element codec
-(``compact+q8``, ``compact+q4``).  The encode/decode pairs run on the
+(``compact+q8``, ``compact+q4``, ``compact+topk:0.01``), and
+``topk:<rate>`` (per-member magnitude top-``rate`` sparsification with
+error feedback; values + int32 indices with AllGather semantics, the
+paper's Top-K baseline).  The encode/decode pairs run on the
 hand-written gather kernels: ``dense`` gathers and zero-fills
 (``gather_groups``), ``q8`` fuses the gather with its quantizer and
-dequantizer (``gather_quantize``/``gather_dequantize``).  ``topk:<rate>``
-waits for a later slice and raises ``NotImplementedError``.
+dequantizer (``gather_quantize``/``gather_dequantize``).
+
+Stateful codecs (top-k) thread their error-feedback state through the
+round: ``group_reduce`` takes and returns a flat dict shaped like the
+boundary payload; ``init_state`` builds the zero state.
 """
 from __future__ import annotations
 
@@ -293,6 +299,87 @@ class Q4Codec(WireCodec):
         return rows * ((C + 1) // 2) + 4 * rows   # packed u8 + f32 scales
 
 
+def topk_mask(a, k: int):
+    """Bool mask of the ``k`` largest entries of ``a`` along its last axis,
+    ties to the LOWER index, as ``jax.lax.top_k`` picks them
+    (``torch.topk`` promises no tie order): every entry above the k-th
+    largest value, then the first entries equal to it, in index order,
+    until there are ``k``."""
+    thr = torch.topk(a, k, dim=-1, sorted=False).values.amin(
+        dim=-1, keepdim=True)
+    above = a > thr
+    tied = a == thr
+    room = k - above.sum(dim=-1, keepdim=True, dtype=torch.int32)
+    return above | (tied & (torch.cumsum(tied, dim=-1, dtype=torch.int32)
+                            <= room))
+
+
+class TopKCodec(WireCodec):
+    """Magnitude top-``rate`` sparsification with error feedback (DGC,
+    the paper's §5.1.4 baseline).  Per-member supports differ, so the
+    exchange is values + int32 indices with AllGather semantics; the
+    value width on the wire is the payload dtype's (bf16 values count 2
+    bytes, not 4).  ``group_reduce`` keeps the selected entries with a
+    ``where`` on :func:`topk_mask` (no scatter): the sparse buffer and the
+    residual are the reference's ``.at[idx].set`` bit for bit."""
+
+    name = "topk"
+    stateful = True
+    gather = True
+
+    def __init__(self, rate: float = 0.01):
+        if not 0.0 < rate <= 1.0:
+            raise ValueError(f"top-k rate must be in (0, 1], got {rate}")
+        self.rate = rate
+        self.name = f"topk:{rate:g}"
+
+    def k_of(self, n: int) -> int:
+        return max(1, int(n * self.rate))
+
+    def encode(self, leaf):
+        """(values, int32 indices) of the ``k`` largest magnitudes, largest
+        first, ties to the lower index (``jax.lax.top_k``'s order)."""
+        from ..core.sparsity import top_k_indices
+        flat = leaf.reshape(-1)
+        idx = top_k_indices(flat.abs(), self.k_of(flat.numel()))
+        return flat[idx], idx.to(torch.int32)
+
+    def decode(self, payload, like=None):
+        if like is None:
+            raise ValueError("topk decode needs the dense template")
+        vals, idx = payload
+        out = torch.zeros(like.numel(), dtype=like.dtype, device=like.device)
+        out[idx.long()] = vals.to(like.dtype)
+        return out.reshape(like.shape)
+
+    def init_state(self, tree):
+        return {k: torch.zeros_like(x) for k, x in tree.items()}
+
+    def _sparsify(self, x, e):
+        """Per-member top-k + error feedback on one (lead, *p) leaf:
+        (sparse, new residual)."""
+        flat = (x + e).reshape(x.shape[0], -1)
+        sel = topk_mask(flat.abs(), self.k_of(flat.shape[-1]))
+        sparse = torch.where(sel, flat, torch.zeros((), dtype=flat.dtype,
+                                                    device=flat.device))
+        return sparse.reshape(x.shape), (flat - sparse).reshape(x.shape)
+
+    def group_reduce(self, tree, g, w=None, state=None):
+        if state is None:
+            state = self.init_state(tree)
+        out, new_state = {}, {}
+        for k, x in tree.items():
+            xw = x * _wbcast(w, x) if w is not None else x
+            sparse, new_state[k] = self._sparsify(xw, state[k])
+            out[k] = group_sum(sparse, g)
+        return out, new_state
+
+    def wire_bytes(self, leaf_shape, dtype) -> int:
+        # value at the wire dtype's width + int32 index per kept entry
+        return self.k_of(_leaf_elems(leaf_shape)) \
+            * (INDEX_BYTES + _dtype_size(dtype))
+
+
 class CompactMarker(WireCodec):
     """Structural-compaction marker: composes with an element codec;
     standalone it is ``compact+dense``."""
@@ -366,17 +453,11 @@ def register_codec(name: str, factory) -> None:
     _REGISTRY[name] = factory
 
 
-def _topk_later(arg=None):
-    raise NotImplementedError(
-        "wire codec 'topk' is not ported yet: top-k with error feedback "
-        "comes in a later slice of the PyTorch port")
-
-
 register_codec("dense", lambda arg=None: DenseCodec())
 register_codec("q8", lambda arg=None: Q8Codec())
 register_codec("q4", lambda arg=None: Q4Codec())
 register_codec("compact", lambda arg=None: CompactMarker())
-register_codec("topk", _topk_later)
+register_codec("topk", lambda arg=None: TopKCodec(float(arg or 0.01)))
 
 
 def list_codecs() -> list[str]:
@@ -385,7 +466,8 @@ def list_codecs() -> list[str]:
 
 def get_codec(spec: "str | WireCodec") -> WireCodec:
     """Resolve a codec spec string: ``dense`` | ``q8`` | ``q4`` |
-    ``compact+q4`` (markers and one element codec joined by ``+``)."""
+    ``topk:0.01`` | ``compact+q4`` (markers and one element codec joined
+    by ``+``)."""
     if isinstance(spec, WireCodec):
         return spec
     parts = [p.strip() for p in spec.split("+") if p.strip()]

@@ -58,15 +58,15 @@ def masks_from_jax(masks: dict, device=None) -> dict:
 def state_from_jax(state: dict, device=None) -> dict:
     """JAX H-SADMM state (numpy leaves), full-shape or reconfigured ->
     port state: theta/mom/u, the z/v/rho lists, per-rule masks, weights,
-    per-class weights and the round counter k.  A ``wire`` entry that
-    holds no array (stateless codecs) maps to nothing; codec
-    error-feedback state has no counterpart until Top-K is ported."""
+    per-class weights, the round counter k and the wire codecs'
+    error-feedback list ``wire`` (one flat tree per boundary, ``{}`` at a
+    stateless one)."""
     device = resolve_device(device)
     out = {}
     for name, v in state.items():
         if name in ("theta", "mom", "u"):
             out[name] = params_from_jax(v, device)
-        elif name in ("z", "v", "rho"):
+        elif name in ("z", "v", "rho", "wire"):
             out[name] = [params_from_jax(t, device) for t in v]
         elif name == "masks":
             out[name] = masks_from_jax(v, device)
@@ -74,21 +74,10 @@ def state_from_jax(state: dict, device=None) -> dict:
             out[name] = _tensor(v, device)
         elif name == "class_weights":
             out[name] = {rule: _tensor(a, device) for rule, a in v.items()}
-        elif name == "wire" and not _flat_any(v):
-            continue   # stateless codecs: the entry holds no array
         else:
             raise NotImplementedError(
                 f"state entry {name!r} has no counterpart in the port yet")
     return out
-
-
-def _flat_any(tree) -> bool:
-    """Does a tree of dicts and lists hold any array?"""
-    if isinstance(tree, dict):
-        return any(_flat_any(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return any(_flat_any(v) for v in tree)
-    return True
 
 
 # ---------------------------------------------------------------------------
@@ -119,7 +108,7 @@ def state_to_jax(state: dict) -> dict:
     for name, v in state.items():
         if name in ("theta", "mom", "u"):
             out[name] = params_to_jax(v)
-        elif name in ("z", "v", "rho"):
+        elif name in ("z", "v", "rho", "wire"):
             out[name] = [params_to_jax(t) for t in v]
         elif name == "masks":
             out[name] = {rule: {f: a.detach().cpu().numpy().astype(np.int32)

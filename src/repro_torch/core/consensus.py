@@ -24,6 +24,11 @@ sorted order (unruled leaves last), so a q4 boundary makes one
 ``quantize_pack_q4`` table launch per class and ring instead of one per
 ring; q8 stays one ``quantize_rows`` launch per leaf.  All-ones class
 weights give the unscoped round's bits.
+
+A stateful boundary codec (``topk:<rate>``) threads its error feedback
+through ``state["wire"]`` (one tree per boundary, see ``core.hsadmm``):
+each exchange reads its boundary's residuals and the new state carries
+the updated ones.
 """
 from __future__ import annotations
 
@@ -88,7 +93,12 @@ def consensus_step(state: dict, spec: EngineSpec, frozen: bool = False,
     hp = spec.hp
     plan = spec.plan
     fulls = {r.name: r.groups for r in plan.rules}
+    # per-boundary wire codecs and their error-feedback state
     codecs = spec.codecs
+    need_wire = any(c.stateful for c in codecs)
+    wire_old = state.get("wire") if need_wire else None
+    wire_new = list(wire_old) if wire_old is not None \
+        else [{} for _ in codecs]
 
     theta, u = state["theta"], state["u"]
     rho = state["rho"]
@@ -118,18 +128,33 @@ def consensus_step(state: dict, spec: EngineSpec, frozen: bool = False,
     def wire_reduce(tree: dict, k: int, g: int, lvl: int) -> dict:
         """Boundary-k weighted group exchange in that codec's format,
         weighted by the level-``lvl`` cumulative weights: one call, or
-        one call per lead coupling class."""
+        one call per lead coupling class.  A stateful codec's error
+        feedback is split by the same keys and merged back, so every
+        leaf's residual threads as in the joint call."""
         codec = codecs[k - 1]
+        cst = wire_old[k - 1] if codec.stateful and wire_old is not None \
+            else None
         if cw is None:
-            return codec.group_reduce(tree, g, wk[lvl])[0]
+            red, cst = codec.group_reduce(tree, g, wk[lvl], cst)
+            if codec.stateful:
+                wire_new[k - 1] = cst
+            return red
         parts: dict = {}
         for key in tree:
             parts.setdefault(key_class.get(key), []).append(key)
-        out = {}
+        out, new_cst = {}, {}
         for cls in sorted(parts, key=lambda c: (c is None, c or "")):
-            out.update(codec.group_reduce(
-                {key: tree[key] for key in parts[cls]}, g,
-                wk_by_class.get(cls, wk)[lvl])[0])
+            keys = parts[cls]
+            red, sc = codec.group_reduce(
+                {key: tree[key] for key in keys}, g,
+                wk_by_class.get(cls, wk)[lvl],
+                {key: cst[key] for key in keys} if cst is not None
+                else None)
+            out.update(red)
+            if codec.stateful:
+                new_cst.update(sc)
+        if codec.stateful:
+            wire_new[k - 1] = {key: new_cst[key] for key in tree}
         return {key: out[key] for key in tree}
 
     payload0 = {key: theta[key] + u[key] for key in theta}
@@ -264,4 +289,6 @@ def consensus_step(state: dict, spec: EngineSpec, frozen: bool = False,
     new_state = dict(state)
     new_state.update(theta=theta, u=u_scaled, z=zs_new, v=vs_scaled,
                      rho=rho_new, masks=new_masks, k=state["k"] + 1)
+    if need_wire:
+        new_state["wire"] = wire_new
     return new_state, info

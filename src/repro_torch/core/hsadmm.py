@@ -11,6 +11,11 @@ State layout (the reference's, with FLAT ``{leaf key: tensor}`` trees):
     class_weights  : per-rule (W,) f32  per-coupling-class weights (only
                      with ``EngineSpec.class_weights``)
     masks          : per-rule {idx (int64), valid, mask, drift}
+    wire           : one flat tree per level boundary k, the stateful
+                     codec's error feedback (top-k), (M_{k-1}, *payload)
+                     with the payload compacted where that boundary ships
+                     the shrunk buffer; ``{}`` at a stateless boundary
+                     (only when some boundary's codec is stateful)
     k              : outer iteration counter
 
 The worker dim W is flat, outer-major over (pod, node, worker).  The
@@ -183,7 +188,39 @@ def init_state(params0: Params, spec: EngineSpec) -> dict:
             r, tuple(params0[r.leaves[0].key].shape[:r.stack_ndims]),
             spec.budgets[r.name], device)
         for r in spec.plan.rules}
+    codecs = spec.codecs
+    if any(c.stateful for c in codecs):
+        state["wire"] = _init_wire_states(params0, spec, codecs)
     return state
+
+
+def _init_wire_states(params0: Params, spec: EngineSpec, codecs: list
+                      ) -> list:
+    """Per-boundary error-feedback state of the stateful wire codecs: one
+    zero tree shaped like the boundary-k payload, leading dim M_{k-1} and
+    leaf shapes compacted where that boundary ships the shrunk buffer
+    (``plan_payload_shapes``).  A stateless boundary holds ``{}``, so the
+    state's structure stays the same across rounds."""
+    from .shrinkage import plan_payload_shapes
+    levels = spec.consensus.levels
+    full_shapes = {k: tuple(x.shape) for k, x in params0.items()}
+    compact_shapes = plan_payload_shapes(full_shapes, spec.plan,
+                                         spec.budgets)
+    out: list = []
+    m = spec.consensus.num_workers
+    for k in range(1, len(levels) + 1):
+        lead, m = m, m // levels[k - 1]
+        codec = codecs[k - 1]
+        if not codec.stateful:
+            out.append({})
+            continue
+        shapes = compact_shapes if spec.boundary_compact(k, codecs) \
+            else full_shapes
+        out.append(codec.init_state({
+            key: torch.zeros((lead,) + shapes[key], dtype=x.dtype,
+                             device=x.device)
+            for key, x in params0.items()}))
+    return out
 
 
 # ---------------------------------------------------------------------------

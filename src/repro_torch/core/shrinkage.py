@@ -11,8 +11,10 @@ order and in reverse; ``plan_bytes`` is the exact byte accounting.
 H-SADMM state (theta/mom/u, every z/v level) — the physical
 reconfiguration path: once masks freeze, the training state moves onto
 budget-B shapes and the round runs over the smaller dense model.
-``shrunk_plan`` builds the matching all-kept plan.  The port has no
-stateful wire codec yet, so there is no error-feedback state to migrate.
+``shrunk_plan`` builds the matching all-kept plan.  A stateful wire
+codec's error feedback (``state["wire"]``) migrates with it: a dense
+boundary's residuals are sliced like the params, a compact boundary's are
+already at budget-B shapes and pass through.
 
 Every rule's compaction or expansion of a payload or state tree is one
 launch of the hand-written gather kernel on the card, for all the leaves
@@ -225,13 +227,24 @@ def shrunk_projection_mask_state(rule: GroupRule, new_rule: GroupRule,
             "drift": torch.zeros((), dtype=torch.float32, device=m.device)}
 
 
+def _migrate_wire(wire: list, wire_compact: tuple, fn) -> list:
+    """``fn`` on every dense boundary's error-feedback tree; empty
+    (stateless) boundaries and those that shipped the compact buffer
+    (``wire_compact[k]``) pass through."""
+    return [w if (not w or (k < len(wire_compact) and wire_compact[k]))
+            else fn(w) for k, w in enumerate(wire)]
+
+
 def compact_state(state: dict, plan: SparsityPlan, idxs: dict,
-                  new_masks: dict) -> dict:
+                  new_masks: dict, wire_compact: tuple = ()) -> dict:
     """Migrate a frozen full-shape H-SADMM state onto budget-B shapes.
 
-    Every per-worker tree (theta/mom/u) and every consensus level (z[k],
-    v[k]) is sliced through ``compact_params`` with the frozen kept-index
-    set; rho, weights and the counter are shape-invariant.  Dropping the
+    Every per-worker tree (theta/mom/u), every consensus level (z[k],
+    v[k]) and every dense-boundary wire error-feedback tree is sliced
+    through ``compact_params`` with the frozen kept-index set; the wire
+    state of boundaries that shipped the compact buffer
+    (``wire_compact[k]``) is already at budget B and passes through.
+    rho, weights and the counter are shape-invariant.  Dropping the
     discarded coordinates IS the reconfiguration's projection:
     ``expand_state(compact_state(s))`` equals ``s`` with the dropped
     groups zeroed."""
@@ -241,17 +254,21 @@ def compact_state(state: dict, plan: SparsityPlan, idxs: dict,
             out[g] = compact_params(state[g], plan, idxs, offset=1)
     out["z"] = [compact_params(z, plan, idxs, offset=1) for z in state["z"]]
     out["v"] = [compact_params(v, plan, idxs, offset=1) for v in state["v"]]
+    if "wire" in state:
+        out["wire"] = _migrate_wire(
+            state["wire"], wire_compact,
+            lambda w: compact_params(w, plan, idxs, offset=1))
     out["masks"] = new_masks
     return out
 
 
 def expand_state(state: dict, plan: SparsityPlan, idxs: dict, fulls: dict,
-                 masks_full: dict) -> dict:
+                 masks_full: dict, wire_compact: tuple = ()) -> dict:
     """Inverse of :func:`compact_state`: zero-fill every migrated tree back
-    onto the full-architecture shapes.  ``masks_full`` is the frozen
-    full-shape mask state the reconfiguration was derived from; it is
-    reinstated with zero drift, so the result is a valid frozen
-    full-shape state."""
+    onto the full-architecture shapes (compact-boundary wire state passes
+    through).  ``masks_full`` is the frozen full-shape mask state the
+    reconfiguration was derived from; it is reinstated with zero drift,
+    so the result is a valid frozen full-shape state."""
     out = dict(state)
 
     def exp(tree):
@@ -262,6 +279,8 @@ def expand_state(state: dict, plan: SparsityPlan, idxs: dict, fulls: dict,
             out[g] = exp(state[g])
     out["z"] = [exp(z) for z in state["z"]]
     out["v"] = [exp(v) for v in state["v"]]
+    if "wire" in state:
+        out["wire"] = _migrate_wire(state["wire"], wire_compact, exp)
     out["masks"] = {name: dict(m, drift=torch.zeros_like(m["drift"]))
                     for name, m in masks_full.items()}
     return out

@@ -26,6 +26,18 @@ def superbatches(it: Iterator, e: int) -> Iterator:
         yield {k: torch.stack([b[k] for b in bs]) for k in bs[0]}
 
 
+def superbatch_chunks(it: Iterator, e: int, steps: int) -> Iterator:
+    """Steps-bounded :func:`superbatches`: yields ``(n, superbatch)``
+    covering exactly ``steps`` steps in chunks of ``e`` plus at most one
+    shorter tail."""
+    done = 0
+    while done < steps:
+        n = min(e, steps - done)
+        bs = [next(it) for _ in range(n)]
+        yield n, {k: torch.stack([b[k] for b in bs]) for k in bs[0]}
+        done += n
+
+
 def prefetch(it: Iterator, size: int = 2) -> Iterator:
     """Background-thread prefetch (double buffering by default).  Closing
     the generator (``close()``, or dropping it) stops the thread, so the

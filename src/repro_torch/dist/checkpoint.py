@@ -9,12 +9,13 @@ Layout: one directory per checkpoint under the run's ckpt root::
 
 Keys are the state's paths joined by ``"/"`` through dicts and lists
 (``theta/<leaf>``, ``z/<level>/<leaf>``, ``rho/<level>/<leaf>``,
-``masks/<rule>/idx``, ``weights``, ``k``); the port's flat leaf keys are
-already the reference's nested paths.  Arrays are saved with the dtypes
-the JAX package writes: the port's int64 tensors (mask indices) as int32,
-since the JAX package runs without 64-bit types.  :func:`restore` and
-:func:`restore_elastic` cast every array back to the template's dtype
-and put it on the template leaf's device.
+``masks/<rule>/idx``, ``wire/<boundary>/<leaf>``, ``weights``, ``k``;
+a stateless boundary's empty wire tree writes nothing); the port's flat
+leaf keys are already the reference's nested paths.  Arrays are saved
+with the dtypes the JAX package writes: the port's int64 tensors (mask
+indices) as int32, since the JAX package runs without 64-bit types.
+:func:`restore` and :func:`restore_elastic` cast every array back to
+the template's dtype and put it on the template leaf's device.
 
 Writes go to a hidden temp directory first and are published with a
 single ``os.replace``: a crash mid-write can never leave a ``ckpt_*``
@@ -275,7 +276,8 @@ def restore_elastic(path: str, template: Any,
     * ``theta`` / ``z``: surviving rows copied; new rows seeded from the
       global consensus ``z`` for the same parameter leaf (warm start),
     * ``mom`` / ``u`` / ``v`` / ``wire``: surviving rows copied; new rows
-      zero,
+      zero (fresh duals, momenta and codec error feedback; ``wire`` also
+      zero-seeds when the save predates the codec),
     * ``weights``: new rows 1.0 (a joining worker is healthy until a
       policy says otherwise),
     * ``rho``: per-level penalties are worker-count independent; a level

@@ -27,7 +27,7 @@ from ..core.hsadmm import (EngineSpec, identity_mask_state, init_state,
                            round_step)
 from ..core.shrinkage import (compact_state, compacting_rule, expand_state,
                               shrunk_plan, shrunk_projection_mask_state)
-from ..device import resolve_device
+from ..device import bind_card_settings, resolve_device
 from ..models import build, shrink_config
 from ..models.api import ModelBundle
 
@@ -37,17 +37,7 @@ class Engine:
                  shape: Optional[ShapeConfig] = None,
                  consensus: Optional[ConsensusSpec] = None,
                  device=None, class_weights: bool = False):
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            # the same seed gives the same run: cuDNN's fastest weight-
-            # gradient algorithms accumulate with atomics in an order that
-            # changes from run to run, and autotuning may pick another
-            # algorithm each time (cuBLAS's fixed workspace is set when
-            # the package is imported, see repro_torch/__init__.py)
-            torch.backends.cudnn.deterministic = True
-            torch.backends.cudnn.benchmark = False
+        self.device = bind_card_settings(resolve_device(device))
         self.bundle = bundle
         self.cfg = bundle.cfg
         self.shape = shape
@@ -126,6 +116,12 @@ class Engine:
     # physical reconfiguration (paper §4.4 applied to the whole run)
     # ------------------------------------------------------------------ #
 
+    def _boundary_compact_flags(self) -> tuple:
+        """Per level boundary: does it ship the physically-shrunk buffer
+        (so its wire error feedback is already at budget-B shapes)?"""
+        return tuple(self.spec.boundary_compact(k)
+                     for k in range(1, self.spec.num_levels + 1))
+
     @property
     def reconfigured(self) -> bool:
         return self.parent is not None
@@ -182,7 +178,8 @@ class Engine:
             else:
                 new_masks[r2.name] = dict(
                     old, drift=torch.zeros_like(old["drift"]))
-        return eng2, compact_state(state, plan, idxs, new_masks)
+        return eng2, compact_state(state, plan, idxs, new_masks,
+                                   self._boundary_compact_flags())
 
     def expand_reconfigured(self, state: dict) -> dict:
         """Inverse migration (on a RECONFIGURED engine): zero-fill the
@@ -195,4 +192,5 @@ class Engine:
         masks_full = self.frozen_masks
         idxs = {r.name: masks_full[r.name]["idx"] for r in plan.rules}
         fulls = {r.name: r.groups for r in plan.rules}
-        return expand_state(state, plan, idxs, fulls, masks_full)
+        return expand_state(state, plan, idxs, fulls, masks_full,
+                            self.parent._boundary_compact_flags())

@@ -16,7 +16,7 @@ from repro_torch import comm as tcomm  # noqa: E402
 from torch_port_helpers import jax_reference, to_np  # noqa: E402
 
 SPECS = ["dense", "q8", "compact", "compact+q8", "compact+dense", "q8+compact",
-         "q4", "compact+q4"]
+         "q4", "compact+q4", "topk:0.01", "topk:1", "compact+topk:0.05"]
 SHAPES = [(), (7,), (1, 1), (64, 10), (3, 3, 64, 128), (2, 5, 7)]
 
 
@@ -37,6 +37,8 @@ def test_wire_bytes_and_spec_parsing_equal_reference(spec):
     (HsadmmConfig(wire_inter="q8"), (8,), 1),     # flat ablation: intra
     (HsadmmConfig(wire_inter="q8"), (8,), 0),
     (HsadmmConfig(wire_map=("dense", "compact+q8")), (4, 4), 1),
+    (HsadmmConfig(wire_inter="compact+topk:0.01"), (4, 4), 1),
+    (HsadmmConfig(wire_map=("topk:0.05", "compact+topk:0.05")), (2, 2), 1),
 ])
 def test_level_codecs_equal_reference(hp, levels, kc):
     assert [c.name for c in tcomm.level_codecs(hp, levels, kc)] == \
@@ -50,9 +52,8 @@ def test_spec_errors():
         tcomm.get_codec("")
     with pytest.raises(ValueError):
         tcomm.compose("q8", "dense")
-    for later in ("topk:0.01", "compact+topk:0.01"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tcomm.get_codec(later)
+    with pytest.raises(ValueError):
+        tcomm.compose("q8", "topk:0.1")   # two element codecs can't reduce
     with pytest.raises(ValueError):
         tcomm.level_codecs(HsadmmConfig(wire_map=("dense",)), (4, 4), 1)
 

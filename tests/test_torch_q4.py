@@ -242,12 +242,23 @@ def test_q4_level_codecs_equal_reference():
 
 
 def test_unported_encode_pairs_refuse():
-    """Only the top-k codec's encode/decode pairs wait for a later slice;
-    the dense and q8 pairs run on the gather kernels (their values are
-    held against the reference in ``test_torch_gather.py``)."""
-    for spec in ("topk:0.1", "compact+topk:0.1"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tcomm.get_codec(spec)
+    """No codec's encode/decode pair refuses any more: the top-k pair
+    round-trips (its values and order are held against the reference in
+    ``test_torch_topk.py``), and the dense and q8 pairs run on the gather
+    kernels (held in ``test_torch_gather.py``)."""
+    x = torch.arange(32, dtype=torch.float32).reshape(4, 8) - 15.5
+    for spec in ("topk:0.1", "compact+topk:0.1", "topk:1"):
+        c = tcomm.get_codec(spec)
+        vals, ti = c.encode(x)
+        assert vals.shape == ti.shape == (c.element.k_of(32)
+                                          if c.compact else c.k_of(32),)
+        dec = c.decode((vals, ti), like=x)
+        assert dec.shape == x.shape
+        kept = dec != 0
+        assert torch.equal(dec[kept], x[kept])
+        assert int(kept.sum()) == vals.numel()
+    assert torch.equal(tcomm.get_codec("topk:1").decode(
+        tcomm.get_codec("topk:1").encode(x), like=x), x)
     x, idx = torch.ones(4, 8), torch.arange(4)
     for spec in ("compact+q8", "compact", "q8", "dense"):
         c = tcomm.get_codec(spec)

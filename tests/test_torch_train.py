@@ -68,6 +68,8 @@ def test_train_matches_reference(runs):
 @pytest.mark.parametrize("wire,expected", [
     ("compact+q8", (44_695_848, 2_861_818, 2_860_858)),
     ("dense", (44_695_848, 11_191_400, 11_190_440)),
+    ("compact+topk:0.01", (44_695_848, 224_720, 223_760)),
+    ("topk:0.01", (44_695_848, 224_720, 223_760)),
 ])
 def test_round_comm_bytes_resnet18_full(wire, expected):
     """Full-width resnet18 at the paper's levels (4, 4): the port's
