@@ -12,6 +12,9 @@
                                     # runs alone, timed (no result line)
     python3 chip_smoke.py --baselines  # phases 1 and 8 alone (no result
                                        # line)
+    python3 chip_smoke.py --variants   # phases 1 and 9 alone, 9 against a
+                                       # run of phase 3's configuration
+                                       # (no result line)
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -145,7 +148,30 @@ Phases (any failure exits non-zero and prints no result line):
    onto the budget-B ResNet and one frozen round there, loss finite;
 8c. one resnet-smoke DDP round on the card and on the CPU (rtol 1e-4),
    and ``TopKCodec.group_reduce`` on identical inputs: selection and
-   residuals bit-equal.
+   residuals bit-equal;
+9a. phase 3's configuration at ``staleness=1`` (overlapped rounds), 6
+   rounds twice and the pipeline flush: bit-equal runs, round 1's
+   local-step losses bit-equal to phase 3's, phase 3's bytes (2,861,818 /
+   2,860,858) and launches every round, the flush one frozen consensus,
+   k = 7; the median steady round beside phase 3's;
+9b. phase 3b's configuration at ``staleness=1``: the flush and the
+   migration before round 4, finite losses, 1,463,013 / 1,462,053 bytes;
+   a second run saving at rounds 4 and 8 bit-equal, its step-4 save
+   restored bit-equal to the state after round 4, and resumed from it
+   twice, bit-equal;
+9c. phase 3's configuration on the per-step dispatch path
+   (``fused_rounds=False``), 3 rounds: losses and mask indices bit-equal
+   to phase 3's first 3 rounds, final theta and z to the fused path's;
+9d. phase 3's configuration with ``grad_accum=2``, 3 rounds twice:
+   bit-equal, the first local step's loss within rtol 1e-5 of phase 3's,
+   the peak beside phase 3's;
+9e. solo mode (one worker, 32 images, reconfiguration patience 1), 6
+   rounds twice: no inter-node bytes, budgets kept, pruned groups zero,
+   the migration before round 4, no prox-SGD launch, bit-equal;
+9f. phase 3's configuration without momentum, 2 rounds twice: no
+   ``mom``, no prox-SGD launch, phase 3's other launches, bit-equal;
+9g. one resnet-smoke overlapped round and one solo round on the card and
+   on the CPU from one state (rtol 1e-4).
 
 ``--wire`` runs phase 1, then phase 2's quantize_rows, quantize_pack_q4
 (ResNet only), gather_groups and group_norms_sq checks and times at the
@@ -1454,39 +1480,47 @@ def _snapshot_masks(state) -> dict:
     return {name: m["idx"].clone() for name, m in state["masks"].items()}
 
 
-def q8_engine(torch, dev, levels=(4, 4)):
+def q8_engine(torch, dev, levels=(4, 4), **cfg_kw):
     """Phase 3's engine: resnet18 full width, 16 workers at levels (4, 4)
     (or ``levels``), compact+q8, masks frozen at round 3; 32 images per
-    worker."""
+    worker (``cfg_kw``: more ``ArchConfig`` fields, such as
+    ``grad_accum``)."""
     from repro_torch.configs import (ConsensusSpec, HsadmmConfig,
                                      ShapeConfig, get_config)
     from repro_torch.models import build
     from repro_torch.train.engine import Engine
     hp = HsadmmConfig(rho1=1e-3, rho2=1e-4, local_steps=8, t_freeze=3,
                       wire_inter="compact+q8")
-    cfg = get_config("resnet18").replace(hsadmm=hp)
+    cfg = get_config("resnet18").replace(hsadmm=hp, **cfg_kw)
     consensus = ConsensusSpec(levels=levels, compact_from_level=1)
     shape = ShapeConfig("chip_smoke", "train", 32,
                         32 * consensus.num_workers)
     return Engine(build(cfg), shape, consensus=consensus, device=dev), shape
 
 
-def counted_rounds():
+def counted_rounds(step_losses: list):
     """``(context, CallCounter)``: inside the context every round function
-    an ``Engine`` hands out (``round_step_fn``) counts its calls."""
+    an ``Engine`` hands out (``round_step_fn``) counts its calls and
+    appends each round's (E,) local-step losses (device tensors, no sync)
+    to ``step_losses``."""
     from repro_torch.dist import monitor
     from repro_torch.train.engine import Engine
     counter = monitor.CallCounter()
     real = Engine.round_step_fn
 
     def counted(self, frozen):
-        return counter.wrap(real(self, frozen),
-                            "frozen" if frozen else "dynamic")
+        fn = real(self, frozen)
+
+        def recording(*args):
+            out = fn(*args)
+            step_losses.append(out[1].losses)
+            return out
+        return counter.wrap(recording, "frozen" if frozen else "dynamic")
     return patched(Engine, "round_step_fn", counted), counter
 
 
 def run_path(torch, engine, rounds: int, eta: float,
-             deterministic: bool = True, **run_kw):
+             deterministic: bool = True, keep_at=None, **run_kw):
     """``engine`` = (Engine, ShapeConfig) trained ``rounds`` rounds through
     the port's ``train`` (seed 0; ``run_kw`` are more ``RunConfig``
     fields).  ``deterministic=False`` turns cuDNN's deterministic switch
@@ -1496,13 +1530,15 @@ def run_path(torch, engine, rounds: int, eta: float,
     with are kept after every round (device copies, no sync); the peak is
     ``max_memory_allocated`` over the run; ``builds`` counts the kernel
     builds during the run (``dist.monitor.compile_count``) and ``calls``
-    the calls of the round functions."""
+    the calls of the round functions; ``step_losses`` holds each fused
+    round's (E,) local-step losses, and ``kept`` the state after round
+    index ``keep_at`` (a reference: no copy, no sync)."""
     from repro_torch.dist import monitor
     from repro_torch.kernels import ops
     from repro_torch.train.loop import RunConfig, train
     eng, shape = engine
     torch.backends.cudnn.deterministic = deterministic
-    per_round, masks, weights = [], [], []
+    per_round, masks, weights, step_losses, kept = [], [], [], [], []
 
     def snapshot(k, state):   # runs after each round's dispatch
         per_round.append(ops.launch_counts())
@@ -1510,10 +1546,12 @@ def run_path(torch, engine, rounds: int, eta: float,
         weights.append((state["weights"].clone(),
                         {c: v.clone() for c, v in
                          state.get("class_weights", {}).items()}))
+        if k == keep_at:
+            kept.append(state)
 
     run = RunConfig(outer_iters=rounds, shape=shape, eta=eta, seed=0,
                     metrics_every=1, eval_fn=snapshot, log=None, **run_kw)
-    rounds_counted, counter = counted_rounds()
+    rounds_counted, counter = counted_rounds(step_losses)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1532,13 +1570,16 @@ def run_path(torch, engine, rounds: int, eta: float,
             "totals": totals, "launches": launches, "masks": masks,
             "weights": weights, "wall": wall,
             "peak": torch.cuda.max_memory_allocated(),
-            "builds": builds.compiles, "calls": counter.calls}
+            "builds": builds.compiles, "calls": counter.calls,
+            "step_losses": step_losses, "kept": kept[0] if kept else None}
 
 
-def run_q8(torch, dev, rounds: int = 6, deterministic: bool = True):
-    """Phase 3's configuration trained through ``run_path`` (eta 1e-2)."""
+def run_q8(torch, dev, rounds: int = 6, deterministic: bool = True,
+           **run_kw):
+    """Phase 3's configuration trained through ``run_path`` (eta 1e-2;
+    ``run_kw``: more ``RunConfig`` fields)."""
     return run_path(torch, q8_engine(torch, dev), rounds, 1e-2,
-                    deterministic)
+                    deterministic, **run_kw)
 
 
 def round_launches(plan) -> tuple[int, int]:
@@ -1627,7 +1668,8 @@ def compare_runs(torch, a, b, label):
                                  "differ")
     sa, sb = a["state"], b["state"]
     pairs = [("theta", sa["theta"], sb["theta"])] + [
-        (f"z{i}", za, zb) for i, (za, zb) in enumerate(zip(sa["z"], sb["z"]))]
+        (f"z{i}", za, zb)
+        for i, (za, zb) in enumerate(zip(sa.get("z", []), sb.get("z", [])))]
     for name, ta, tb in pairs:
         d = _first_diff(torch, ta, tb)
         if d:
@@ -1635,7 +1677,7 @@ def compare_runs(torch, a, b, label):
                                  f"up to {d[1]}")
     say(f"determinism ({label}): {len(ra.losses)} rounds twice from seed 0, "
         f"losses {ra.losses} equal, mask indices after every round and the "
-        f"final theta and z (levels {len(sa['z'])}) bit-equal")
+        f"final theta and z (levels {len(sa.get('z', []))}) bit-equal")
 
 
 def _steady(rep) -> list:
@@ -1804,30 +1846,32 @@ def profile_round(torch, eng, state, shape, label="frozen", eta=1e-2):
 
 
 def smoke_round_cpu_vs_card(torch, dev, bundle, spec, shape, keys, eta,
-                            label, prepare=lambda st: st):
-    """One round of ``bundle`` under ``spec`` from one state (the init,
-    through ``prepare``) on the card and on the CPU (plain versions), on
-    the first 8 batches (``keys``) of ``shape``'s stream for 4 workers:
-    theta and z agree to rtol 1e-4 (atol 1e-6), the mask indices are
-    equal."""
+                            label, prepare=lambda st: st, step=None):
+    """One round (``step``, ``round_step`` by default) of ``bundle`` under
+    ``spec`` from one state (the init, through ``prepare``) on the card
+    and on the CPU (plain versions), on the first 8 batches (``keys``) of
+    ``shape``'s stream for the spec's workers: theta and every z level
+    agree to rtol 1e-4 (atol 1e-6), the mask indices are equal."""
     import numpy as np
     from repro_torch.core.hsadmm import init_state, round_step
     from repro_torch.data.synthetic import make_stream
-    stream = make_stream(bundle.cfg, shape, 4, device="cpu")
+    step = step or round_step
+    stream = make_stream(bundle.cfg, shape, spec.consensus.num_workers,
+                         device="cpu")
     sb = {k: torch.stack([stream.batch_at(s)[k] for s in range(8)])
           for k in keys}
     out = {}
     for d in ("cpu", dev):
         st0 = prepare(init_state(
             bundle.init(torch.Generator().manual_seed(0), d), spec))
-        st, _ = round_step(st0, {k: v.to(d) for k, v in sb.items()},
-                           bundle.train_loss, spec, eta)
+        st, _ = step(st0, {k: v.to(d) for k, v in sb.items()},
+                     bundle.train_loss, spec, eta)
         out[str(d)] = st
     cpu, gpu = out["cpu"], out[str(dev)]
     worst = 0.0
     for name, a, g in ([("theta", cpu["theta"], gpu["theta"])]
-                       + [(f"z{i}", cpu["z"][i], gpu["z"][i])
-                          for i in range(2)]):
+                       + [(f"z{i}", z, gpu["z"][i])
+                          for i, z in enumerate(cpu.get("z", []))]):
         for key in a:
             x, y = a[key].numpy(), g[key].cpu().numpy()
             np.testing.assert_allclose(y, x, rtol=1e-4, atol=1e-6,
@@ -1858,12 +1902,13 @@ def smoke_resnet_cpu_vs_card(torch, dev):
                             ("images", "labels"), 1e-2, "smoke round")
 
 
-def run_reconfig(torch, dev, rounds: int = 8, **run_kw):
+def run_reconfig(torch, dev, rounds: int = 8, keep_at=None, **run_kw):
     """Phase 3b's configuration trained ``rounds`` rounds through the
     port's ``train`` (``run_kw``: more ``RunConfig`` fields), with the
     launch counts, mask indices, peak and held memory of every round.
     Returns a dict of them, the engine, shape, final state, report,
-    launch totals and wall time."""
+    launch totals, wall time and the state after round index ``keep_at``
+    (a reference)."""
     from repro_torch.configs import (ConsensusSpec, HsadmmConfig,
                                      ShapeConfig, get_config)
     from repro_torch.kernels import ops
@@ -1878,7 +1923,7 @@ def run_reconfig(torch, dev, rounds: int = 8, **run_kw):
     eng = Engine(build(cfg), shape,
                  consensus=ConsensusSpec(levels=(4, 4), compact_from_level=1),
                  device=dev)
-    per_round, peaks, held, masks = [], [], [], []
+    per_round, peaks, held, masks, kept = [], [], [], [], []
 
     def snapshot(k, state):   # runs after each round's dispatch
         per_round.append(ops.launch_counts())
@@ -1886,6 +1931,8 @@ def run_reconfig(torch, dev, rounds: int = 8, **run_kw):
         peaks.append(torch.cuda.max_memory_allocated())
         held.append(torch.cuda.memory_allocated())
         torch.cuda.reset_peak_memory_stats()
+        if k == keep_at:
+            kept.append(state)
 
     run = RunConfig(outer_iters=rounds, shape=shape, eta=1e-2, seed=0,
                     metrics_every=1, reconfig=True, eval_fn=snapshot,
@@ -1902,7 +1949,8 @@ def run_reconfig(torch, dev, rounds: int = 8, **run_kw):
                 for i, c in enumerate(per_round)]
     return {"eng": eng, "shape": shape, "state": state, "rep": rep,
             "totals": totals, "launches": launches, "masks": masks,
-            "peaks": peaks, "held": held, "wall": wall}
+            "peaks": peaks, "held": held, "wall": wall,
+            "kept": kept[0] if kept else None}
 
 
 def train_reconfig(torch, dev, **run_kw):
@@ -3156,11 +3204,328 @@ def baselines_phase(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: overlapped rounds, the per-step path, microbatch accumulation,
+# solo mode and momentum-free updates on full-width ResNet-18
+# ---------------------------------------------------------------------------
+
+# inter-node bytes a dynamic / frozen round of phase 3 (compact+q8) and of
+# phase 3b's full-width rounds (compact+q4)
+Q8_BYTES = (2_861_818, 2_860_858)
+Q4_BYTES = (1_463_013, 1_462_053)
+
+
+def phase3_ref(r) -> dict:
+    """What phase 9 compares with, kept from a run of phase 3's
+    configuration (``run_q8``): report, launches and mask indices of every
+    round, the local-step losses and the peak.  No state: phase 9's
+    peaks count every tensor alive on the card, so each run's peak is
+    read from the first run of its sub-phase, with no other state held."""
+    return {k: r[k] for k in ("rep", "launches", "masks", "step_losses",
+                              "peak")}
+
+
+def _check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def _finite(rep, label):
+    _check(all(math.isfinite(x) for x in rep.losses),
+           f"{label}: non-finite losses {rep.losses}")
+
+
+def overlapped_q8(torch, dev, ref):
+    """Phase 9a: phase 3's configuration at ``staleness=1`` (the loop
+    rebuilds the engine through ``with_staleness``), 6 rounds twice, then
+    the flush: the runs bit-equal; round 1's local-step losses bit-equal
+    to phase 3's (both read the same z0); phase 3's bytes and launches in
+    every round; the flush one frozen consensus (phase 3's last round's
+    launches without prox-SGD's), k = 7 after it.  Prints the median
+    steady round beside phase 3's and the peak."""
+    from repro_torch.kernels import ops
+    runs = [run_q8(torch, dev, staleness=1) for _ in range(2)]
+    compare_runs(torch, runs[0], runs[1], "q8 at staleness 1")
+    r, rep3 = runs[0], ref["rep"]
+    rep = r["rep"]
+    _finite(rep, "9a")
+    _check(torch.equal(r["step_losses"][0], ref["step_losses"][0]),
+           f"9a round 1 losses {r['step_losses'][0].tolist()} vs phase 3 "
+           f"{ref['step_losses'][0].tolist()}")
+    _check(rep.executables == rep3.executables and rep.frozen_at == 3,
+           f"9a executables {rep.executables}, frozen_at {rep.frozen_at}")
+    _check(rep.comm_bytes_internode == [Q8_BYTES[0]] * 3 + [Q8_BYTES[1]] * 3,
+           f"9a bytes {rep.comm_bytes_internode}")
+    _check(r["launches"] == ref["launches"],
+           f"9a launches {r['launches']} vs phase 3 {ref['launches']}")
+    eng = rep.final_engine
+    _check(eng.cfg.hsadmm.staleness == 1, "9a engine not overlapped")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    st, m = eng.flush_pipeline_fn(frozen=True)(r["state"])
+    flush = ops.launch_counts()
+    want = dict(ref["launches"][-1], fused_prox_sgd_dyn=0)
+    _check(flush == want and int(st["k"]) == 7 and m.losses.numel() == 0,
+           f"9a flush: launches {flush} (want {want}), k {int(st['k'])}")
+    med = [_median(_steady(x["rep"])) for x in runs]
+    say(f"overlapped q8 (staleness 1): losses {rep.losses}, bytes "
+        f"{rep.comm_bytes_internode}, launches a round "
+        f"{[_nz(c) for c in r['launches']]}, flush {_nz(flush)}, k after the "
+        f"flush {int(st['k'])}; round wall_ms "
+        f"{[[round(w * 1e3, 1) for w in x['rep'].wall_times] for x in runs]}"
+        f"; steady median {med[0]:.1f} / {med[1]:.1f} ms against phase "
+        f"3's {_median(_steady(rep3)):.1f} ms; peak {r['peak']} bytes "
+        f"(phase 3 {ref['peak']})")
+
+
+def overlapped_reconfig(torch, dev, d):
+    """Phase 9b: phase 3b's configuration at ``staleness=1``: the loop
+    flushes, then migrates onto the budget-B ResNet before round 4;
+    finite losses, phase 3b's bytes, k = 9 (8 rounds and the flush).  A
+    second run saving at rounds 4 and 8 is bit-equal to it, and its step-4
+    save restores bit-equal to the state in memory after round 4 (one
+    theta pending); ``train`` resumed from that save twice (its stream from
+    the first batch, dynamic until the schedule freezes it, then the
+    flush and the migration before round 6) is bit-equal."""
+    import os
+    from repro_torch.dist import checkpoint as ckpt
+    a = run_reconfig(torch, dev, staleness=1)
+    rep = a["rep"]
+    _finite(rep, "9b")
+    _check(rep.executables == ["dynamic"] * 3 + ["frozen"]
+           + ["reconfigured"] * 4 and rep.frozen_at == 3
+           and rep.reconfigured_at == 4,
+           f"9b executables {rep.executables}, reconfigured_at "
+           f"{rep.reconfigured_at}")
+    _check(rep.comm_bytes_internode == [Q4_BYTES[0]] * 3
+           + [Q4_BYTES[1]] * 5, f"9b bytes {rep.comm_bytes_internode}")
+    rc = rep.final_engine
+    params = sum(math.prod(v) for v in rc.bundle.shapes.values())
+    _check(int(a["state"]["k"]) == 9 and rc.cfg.hsadmm.staleness == 1
+           and params == RECONFIGURED_PARAMS,
+           f"9b k {int(a['state']['k'])}, {params} parameters")
+    b = run_reconfig(torch, dev, keep_at=3, staleness=1, ckpt_dir=d,
+                     ckpt_every=4)
+    compare_runs(torch, a, b, "q4 reconfigured at staleness 1, the second "
+                 "run saving at rounds 4 and 8")
+    del a
+    step4 = os.path.join(d, "ckpt_00000004")
+    back, meta = ckpt.restore(step4, b["kept"])
+    n = _assert_states_equal(torch, back, b["kept"], "9b restore")
+    _check(meta["step"] == 4 and not meta["reconfigured"], f"9b meta {meta}")
+    del back, b
+    shutil.rmtree(os.path.join(d, "ckpt_00000008"))
+    runs = [run_reconfig(torch, dev, staleness=1, ckpt_dir=d, ckpt_every=0)
+            for _ in range(2)]
+    for x in runs:
+        xr = x["rep"]
+        _finite(xr, "9b resumed")
+        _check(xr.executables == ["dynamic", "frozen", "reconfigured",
+                                  "reconfigured"]
+               and xr.reconfigured_at == 6
+               and xr.comm_bytes_internode == [Q4_BYTES[0]]
+               + [Q4_BYTES[1]] * 3,
+               f"9b resumed: {xr.executables}, reconfigured_at "
+               f"{xr.reconfigured_at}, bytes {xr.comm_bytes_internode}")
+    compare_runs(torch, runs[0], runs[1], "q4 at staleness 1, resumed from "
+                 "step 4")
+    say(f"overlapped reconfiguration (staleness 1): losses {rep.losses}, "
+        f"bytes {rep.comm_bytes_internode}, migration "
+        f"{rep.reconfig_seconds * 1e3:.1f} ms (the flush included), round "
+        f"wall_ms {[round(w * 1e3, 1) for w in rep.wall_times]}, "
+        f"reconfigured steady median "
+        f"{_median([w * 1e3 for w in rep.wall_times[5:]]):.1f} ms; step-4 "
+        f"save restored bit-equal ({n} leaves); resumed twice: "
+        f"{runs[0]['rep'].executables}, losses {runs[0]['rep'].losses}")
+
+
+def per_step_q8(torch, dev, ref):
+    """Phase 9c: phase 3's configuration on the per-step dispatch path
+    (``fused_rounds=False``) for 3 rounds, and on the fused path for the
+    same 3 rounds: losses and mask indices after every round bit-equal to
+    phase 3's first 3 rounds, phase 3's launches, and the two runs' final
+    theta and z bit-equal."""
+    a = run_q8(torch, dev, rounds=3, fused_rounds=False)
+    b = run_q8(torch, dev, rounds=3)
+    rep3 = ref["rep"]
+    for x, label in ((a, "per-step"), (b, "fused")):
+        xr = x["rep"]
+        _check(xr.losses == rep3.losses[:3]
+               and xr.executables == rep3.executables[:3],
+               f"9c {label}: losses {xr.losses} vs phase 3 "
+               f"{rep3.losses[:3]}")
+        for k, m in enumerate(x["masks"]):
+            d = _first_diff(torch, m, ref["masks"][k])
+            _check(d is None, f"9c {label}: round {k} mask idx of {d}")
+        _check(x["launches"] == ref["launches"][:3],
+               f"9c {label} launches {x['launches']}")
+    _check(not a["step_losses"], "9c: the per-step path called a round "
+           "function")
+    compare_runs(torch, a, b, "per-step vs fused rounds")
+    say(f"per-step path: 3 rounds bit-equal to phase 3's (losses "
+        f"{a['rep'].losses}, mask indices, final theta/z against the fused "
+        f"path's 3 rounds); round wall_ms "
+        f"{[round(w * 1e3, 1) for w in a['rep'].wall_times]} against "
+        f"{[round(w * 1e3, 1) for w in b['rep'].wall_times]} fused; peak "
+        f"{a['peak']} bytes (phase 3 {ref['peak']})")
+
+
+def grad_accum_q8(torch, dev, ref):
+    """Phase 9d: phase 3's configuration with ``grad_accum=2`` (two
+    microbatches of 16 images a worker and step), 3 rounds twice: the runs
+    bit-equal, phase 3's bytes and launches, the first local step's loss
+    within rtol 1e-5 of phase 3's; prints the peak beside phase 3's and
+    the median round."""
+    runs = [run_path(torch, q8_engine(torch, dev, grad_accum=2), 3, 1e-2)
+            for _ in range(2)]
+    compare_runs(torch, runs[0], runs[1], "q8 with grad_accum=2")
+    r = runs[0]
+    _finite(r["rep"], "9d")
+    check_q8_rounds(r)
+    got, want = r["step_losses"][0][0].item(), \
+        ref["step_losses"][0][0].item()
+    _check(abs(got - want) <= 1e-5 * abs(want),
+           f"9d first step loss {got} vs phase 3 {want}")
+    walls = _steady(r["rep"]) + _steady(runs[1]["rep"])
+    say(f"grad_accum=2: first local step loss {got} (phase 3 {want}, rel "
+        f"{abs(got - want) / abs(want):.3e}); peak {r['peak']} bytes "
+        f"(phase 3 {ref['peak']}); round wall_ms "
+        f"{[[round(w * 1e3, 1) for w in x['rep'].wall_times] for x in runs]}"
+        f", median of rounds 2-3 {_median(walls):.1f} ms against phase 3's "
+        f"{_median(_steady(ref['rep'])[:2]):.1f} ms")
+
+
+def solo_engine(torch, dev):
+    """Phase 9e's engine: full-width resnet18 on one worker at pod
+    granularity (solo mode), 32 images, E = 8, masks frozen at round 3,
+    reconfiguration patience 1."""
+    from repro_torch.configs import (ConsensusSpec, HsadmmConfig,
+                                     ShapeConfig, get_config)
+    from repro_torch.models import build
+    from repro_torch.train.engine import Engine
+    hp = HsadmmConfig(rho1=1e-3, rho2=1e-4, local_steps=8, t_freeze=3,
+                      reconfig_patience=1)
+    consensus = ConsensusSpec(levels=(1,), compact_from_level=0,
+                              granularity="pod")
+    shape = ShapeConfig("chip_smoke", "train", 32, 32)
+    return Engine(build(get_config("resnet18").replace(hsadmm=hp)), shape,
+                  consensus=consensus, device=dev), shape
+
+
+def solo_run(torch, dev):
+    """Phase 9e: solo mode with ``reconfig=True``, 6 rounds twice: no
+    inter-node bytes, each rule's mask at its budget and theta's pruned
+    groups zero after the last dynamic round, the migration before round
+    4, no prox-SGD launch (the plain update: no prox term), bit-equal
+    runs."""
+    from repro_torch.core.sparsity import apply_mask_rule
+    runs = [run_path(torch, solo_engine(torch, dev), 6, 1e-2, keep_at=2,
+                     reconfig=True) for _ in range(2)]
+    compare_runs(torch, runs[0], runs[1], "solo")
+    r = runs[0]
+    rep, eng = r["rep"], r["eng"]
+    _finite(rep, "9e")
+    _check(rep.executables == ["dynamic"] * 3 + ["frozen"]
+           + ["reconfigured"] * 2 and rep.reconfigured_at == 4,
+           f"9e executables {rep.executables}")
+    _check(rep.comm_bytes_internode == [0] * 6 and rep.wire_map is None,
+           f"9e bytes {rep.comm_bytes_internode}, wire map {rep.wire_map}")
+    _check(r["totals"]["fused_prox_sgd_dyn"] == 0,
+           f"9e launches {r['totals']}")
+    kept, budgets = r["kept"], eng.spec.budgets
+    for rule in eng.spec.plan.rules:
+        m = kept["masks"][rule.name]["mask"]
+        _check(bool(torch.all(m.sum(-1) == budgets[rule.name])),
+               f"9e rule {rule.name} keeps {m.sum(-1).tolist()}")
+        proj = apply_mask_rule(kept["theta"], rule, m[None], offset=1)
+        for la in rule.all_leaves:
+            _check(torch.equal(proj[la.key], kept["theta"][la.key]),
+                   f"9e {la.key}: pruned groups not zero")
+    rc = rep.final_engine
+    params = sum(math.prod(v) for v in rc.bundle.shapes.values())
+    say(f"solo: losses {rep.losses}, executables {rep.executables}, bytes "
+        f"{rep.comm_bytes_internode}, budgets kept and pruned groups zero "
+        f"({len(eng.spec.plan.rules)} rules), {params} parameters after "
+        f"the migration; launches {_nz(r['totals'])}; round wall_ms "
+        f"{[[round(w * 1e3, 1) for w in x['rep'].wall_times] for x in runs]}"
+        f"; peak {r['peak']} bytes")
+
+
+def momentum_free_q8(torch, dev, ref):
+    """Phase 9f: phase 3's configuration with ``EngineSpec.use_momentum``
+    off (the engine's spec replaced before ``train``), 2 rounds twice: no
+    ``mom`` in the state, no prox-SGD launch (the plain update), phase
+    3's gather, group-norm and quantize launches, bit-equal runs."""
+    import dataclasses
+
+    def engine():
+        eng, shape = q8_engine(torch, dev)
+        eng.spec = dataclasses.replace(eng.spec, use_momentum=False)
+        return eng, shape
+    runs = [run_path(torch, engine(), 2, 1e-2) for _ in range(2)]
+    compare_runs(torch, runs[0], runs[1], "q8 without momentum")
+    r = runs[0]
+    _finite(r["rep"], "9f")
+    _check("mom" not in r["state"], "9f: the state has mom")
+    for k, c in enumerate(r["launches"]):
+        want = dict(ref["launches"][k], fused_prox_sgd_dyn=0)
+        _check(c == want, f"9f round {k} launches {c}, want {want}")
+    say(f"momentum-free: losses {r['rep'].losses}, state "
+        f"{sorted(r['state'])}, launches {[_nz(c) for c in r['launches']]}"
+        f", round wall_ms "
+        f"{[[round(w * 1e3, 1) for w in x['rep'].wall_times] for x in runs]}"
+        f"; peak {r['peak']} bytes")
+
+
+def variants_cpu_vs_card(torch, dev):
+    """Phase 9g: one resnet-smoke overlapped round (W = 4 at levels (2, 2),
+    compact+q8, E = 8) and one solo round (one worker) on the card and on
+    the CPU from one state, through ``smoke_round_cpu_vs_card``."""
+    from repro_torch.configs import (ConsensusSpec, HsadmmConfig,
+                                     ShapeConfig, get_config)
+    from repro_torch.core.hsadmm import EngineSpec, round_step_overlapped
+    from repro_torch.models import build
+    hp = HsadmmConfig(rho1=1e-3, rho2=1e-4, local_steps=8,
+                      wire_inter="compact+q8")
+    b = build(get_config("resnet18", smoke=True).replace(hsadmm=hp))
+    shape = ShapeConfig("s", "train", 16, 16)
+    for consensus, step, label in (
+            (ConsensusSpec((2, 2), 1), round_step_overlapped,
+             "smoke overlapped round"),
+            (ConsensusSpec((1,), 0, "pod"), None, "smoke solo round")):
+        spec = EngineSpec(plan=b.plan, consensus=consensus, hp=hp,
+                          stack_map=tuple(b.stack_map))
+        smoke_round_cpu_vs_card(torch, dev, b, spec, shape,
+                                ("images", "labels"), 1e-2, label, step=step)
+
+
+def variants_phase(torch, dev, ref):
+    """Phase 9 (9a-9g) against ``ref``, phase 3's run (``phase3_ref``)."""
+    overlapped_q8(torch, dev, ref)
+    say("phase 9a overlapped rounds: ok")
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        overlapped_reconfig(torch, dev, d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    say("phase 9b overlapped rounds through reconfiguration: ok")
+    per_step_q8(torch, dev, ref)
+    say("phase 9c per-step path: ok")
+    grad_accum_q8(torch, dev, ref)
+    say("phase 9d microbatch accumulation: ok")
+    solo_run(torch, dev)
+    say("phase 9e solo: ok")
+    momentum_free_q8(torch, dev, ref)
+    say("phase 9f momentum-free updates: ok")
+    variants_cpu_vs_card(torch, dev)
+    say("phase 9g card vs CPU: ok")
+
+
 def main(argv) -> int:
     if argv not in ([], ["--ssd"], ["--wire"], ["--rounds"],
-                    ["--baselines"]):
+                    ["--baselines"], ["--variants"]):
         return fail("usage: chip_smoke.py [--ssd | --wire | --rounds | "
-                    f"--baselines] (got {argv})")
+                    f"--baselines | --variants] (got {argv})")
     try:
         import torch
     except ImportError:
@@ -3191,9 +3556,16 @@ def main(argv) -> int:
             for line in ptxas_lines(log):
                 say(f"  ptxas {name}: {line}")
         if argv:   # --ssd: phase 6; --wire: the wire kernels; --rounds;
-            # --baselines: phase 8
+            # --baselines: phase 8; --variants: phase 9
             if argv[0] == "--baselines":
                 baselines_phase(torch, dev)
+                kernels = []
+            elif argv[0] == "--variants":
+                base = run_q8(torch, dev)   # phase 3's run: 9's baseline
+                check_q8_rounds(base)
+                ref9 = phase3_ref(base)
+                del base   # its state would count in phase 9's peaks
+                variants_phase(torch, dev, ref9)
                 kernels = []
             else:
                 kernels = {"--ssd": check_ssd, "--wire": wire_phase,
@@ -3222,6 +3594,7 @@ def main(argv) -> int:
         full = train_full(torch, dev)
         totals = full["totals"]
         phase3 = {k: full[k] for k in ("builds", "calls", "rep")}
+        ref9 = phase3_ref(full)
         say(f"phase 3 train: ok, launches {totals}")
 
         det_on, det_off = determinism_q8(torch, dev, full)
@@ -3305,6 +3678,8 @@ def main(argv) -> int:
         say("phase 6c mamba2 smoke round card vs CPU: ok")
 
         base = baselines_phase(torch, dev)
+
+        variants_phase(torch, dev, ref9)
 
         # the main paths' end-to-end numbers again, next to the result
         say("summary: round wall_ms "

@@ -60,7 +60,8 @@ def state_from_jax(state: dict, device=None) -> dict:
     port state: theta/mom/u, the z/v/rho lists, per-rule masks, weights,
     per-class weights, the round counter k and the wire codecs'
     error-feedback list ``wire`` (one flat tree per boundary, ``{}`` at a
-    stateless one)."""
+    stateless one).  Entries the state lacks stay absent: a momentum-free
+    state has no ``mom``, a solo one no ``u``, ``z``, ``v`` or ``rho``."""
     device = resolve_device(device)
     out = {}
     for name, v in state.items():

@@ -83,11 +83,30 @@ def _col(w, b):
     return w.reshape((-1,) + (1,) * (b.ndim - 1)).to(b.dtype)
 
 
+def _solo_prune_step(state: dict, spec: EngineSpec, frozen: bool
+                     ) -> tuple[dict, dict]:
+    """Single-worker solo mode: no consensus runs on one worker, so theta
+    is projected onto masks built from theta itself; zero residuals."""
+    theta = state["theta"]
+    new_masks, _, info = _make_masks(state, spec, theta, frozen)
+    for rule in spec.plan.rules:
+        theta = apply_mask_rule(theta, rule,
+                                new_masks[rule.name]["mask"][None], offset=1)
+    new_state = dict(state)
+    new_state.update(theta=theta, masks=new_masks, k=state["k"] + 1)
+    zero = torch.zeros((), dtype=torch.float32, device=state["k"].device)
+    info["r_primal"] = info["s_dual"] = zero
+    return new_state, info
+
+
 def consensus_step(state: dict, spec: EngineSpec, frozen: bool = False,
                    detail: bool = True) -> tuple[dict, dict]:
     """Run Phases 2-5.  ``frozen`` selects the cached-mask path (paper
     §4.5).  ``detail=False`` drops the per-leaf residual maps
-    (``r_intra``/``r_inter*``) from the info dict."""
+    (``r_intra``/``r_inter*``) from the info dict.  In solo mode this is
+    :func:`_solo_prune_step`."""
+    if spec.solo:
+        return _solo_prune_step(state, spec, frozen)
     levels = spec.consensus.levels
     K = len(levels)
     hp = spec.hp

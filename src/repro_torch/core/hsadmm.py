@@ -19,9 +19,14 @@ State layout (the reference's, with FLAT ``{leaf key: tensor}`` trees):
     k              : outer iteration counter
 
 The worker dim W is flat, outer-major over (pod, node, worker).  The
-single-worker solo mode, microbatch accumulation and the overlapped round
-wait for later slices of the port and raise ``NotImplementedError``;
-momentum-free updates are not in its ``EngineSpec`` yet.
+single-worker solo mode (one worker at pod granularity) keeps only theta,
+k, weights, mom and masks: it has no consensus variables, and its
+"consensus" projects theta onto the masks (``consensus._solo_prune_step``).
+Without momentum (``EngineSpec.use_momentum=False``) the state has no
+``mom``.  ``grad_accum > 1`` splits each worker's batch into contiguous
+microbatches and sums their gradients.  :func:`round_step_overlapped` is
+the one-round-stale pipeline of ``HsadmmConfig.staleness=1``, and
+:func:`flush_pipeline` drains it.
 """
 from __future__ import annotations
 
@@ -50,17 +55,12 @@ class EngineSpec:
     # leaf's first `ndims` axes are stack axes with independent layer-wise
     # penalties/residuals (paper §3.4).
     stack_map: tuple[tuple[str, int], ...] = (("blocks", 1),)
+    use_momentum: bool = True
     momentum: float = 0.9
     # per-coupling-class straggler weights (``dist.ft.class_scoped``):
     # adds a ``{rule: (W,)}`` weight tree to the state and partitions the
     # wire reduce by each leaf's lead coupling class
     class_weights: bool = False
-
-    def __post_init__(self):
-        if self.solo:
-            raise NotImplementedError(
-                "the single-worker solo mode (pod granularity, one worker) "
-                "comes in a later slice of the PyTorch port")
 
     @property
     def sync_cfg(self) -> MaskSyncConfig:
@@ -158,9 +158,15 @@ def init_state(params0: Params, spec: EngineSpec) -> dict:
     theta = {k: _rep(x, W) for k, x in params0.items()}
     state = {"theta": theta,
              "k": torch.zeros((), dtype=torch.int32, device=device),
-             "weights": torch.ones((W,), dtype=torch.float32, device=device),
-             "mom": {k: torch.zeros_like(x) for k, x in theta.items()},
-             "u": {k: torch.zeros_like(x) for k, x in theta.items()}}
+             "weights": torch.ones((W,), dtype=torch.float32, device=device)}
+    if spec.use_momentum:
+        state["mom"] = {k: torch.zeros_like(x) for k, x in theta.items()}
+    if spec.solo:
+        # one worker: no consensus variables; its consensus step projects
+        # theta onto the masks directly
+        state["masks"] = _init_masks(params0, spec, device)
+        return state
+    state["u"] = {k: torch.zeros_like(x) for k, x in theta.items()}
     if spec.class_weights:
         # multiplied into the global weights inside consensus_step; all
         # ones gives the unscoped round's bits until a policy writes them
@@ -183,15 +189,19 @@ def init_state(params0: Params, spec: EngineSpec) -> dict:
                 for k, x in params0.items()}
     state["rho"] = [rho_tree(spec.hp.rho1)] + [
         rho_tree(spec.hp.rho2) for _ in range(len(levels) - 1)]
-    state["masks"] = {
-        r.name: identity_mask_state(
-            r, tuple(params0[r.leaves[0].key].shape[:r.stack_ndims]),
-            spec.budgets[r.name], device)
-        for r in spec.plan.rules}
+    state["masks"] = _init_masks(params0, spec, device)
     codecs = spec.codecs
     if any(c.stateful for c in codecs):
         state["wire"] = _init_wire_states(params0, spec, codecs)
     return state
+
+
+def _init_masks(params0: Params, spec: EngineSpec, device) -> dict:
+    """All-ones masks of every rule (paper Alg. 1 line 1)."""
+    return {r.name: identity_mask_state(
+                r, tuple(params0[r.leaves[0].key].shape[:r.stack_ndims]),
+                spec.budgets[r.name], device)
+            for r in spec.plan.rules}
 
 
 def _init_wire_states(params0: Params, spec: EngineSpec, codecs: list
@@ -245,37 +255,67 @@ def grad_and_value(loss_fn: Callable) -> Callable:
     return fn
 
 
+def accumulated(loss_fn: Callable, grad_accum: int) -> Callable:
+    """:func:`grad_and_value` of ``loss_fn`` over ``grad_accum``
+    contiguous microbatches of one worker's batch (the reference's
+    ``x.reshape((ga, B // ga) + x.shape[1:])``), in order: losses and
+    gradients summed from zeros, then divided by ``grad_accum``.  Each
+    microbatch's backward runs before the next forward, so one
+    microbatch's activations are alive at a time."""
+    vg = grad_and_value(loss_fn)
+
+    def fn(params, batch):
+        mbs = {k: x.reshape((grad_accum, x.shape[0] // grad_accum)
+                            + tuple(x.shape[1:])) for k, x in batch.items()}
+        loss = torch.zeros((), dtype=torch.float32,
+                           device=next(iter(params.values())).device)
+        g = {k: torch.zeros_like(x) for k, x in params.items()}
+        for i in range(grad_accum):
+            gi, li = vg(params, {k: x[i] for k, x in mbs.items()})
+            loss = loss + li
+            g = {k: g[k] + gi[k] for k in g}
+        ga = float(grad_accum)
+        return {k: x / ga for k, x in g.items()}, loss / ga
+    return fn
+
+
 def local_step(state: dict, batch: dict, loss_fn: Callable, spec: EngineSpec,
                eta, grad_accum: int = 1) -> tuple[dict, torch.Tensor]:
     """One minibatch prox-SGD step on every worker.
 
     ``loss_fn(params_one_worker, batch_one_worker) -> scalar``; batch
     leaves have leading dim W.  Per-worker gradients come from ``vmap`` of
-    :func:`grad_and_value` over the stacked parameters; the prox gradient
-    rho1 * (theta - z1 + u) is added analytically inside the fused update
-    (``ops.prox_sgd_update``, the hand-written kernel on the card).
+    :func:`grad_and_value` (of :func:`accumulated` with ``grad_accum >
+    1``) over the stacked parameters; the prox gradient rho1 * (theta - z1
+    + u) is added analytically inside the fused update
+    (``ops.prox_sgd_update``, the hand-written kernel on the card).  In
+    solo mode there is no prox term, and without momentum no momentum
+    buffer: the shim then takes the reference's plain update.
     Returns (new_state, mean loss)."""
-    if grad_accum != 1:
-        raise NotImplementedError(
-            "microbatch gradient accumulation comes in a later slice of the "
-            "port")
     levels = spec.consensus.levels
     theta = state["theta"]
-    g, losses = vmap(grad_and_value(loss_fn))(theta, batch)
+    vg = accumulated(loss_fn, grad_accum) if grad_accum > 1 \
+        else grad_and_value(loss_fn)
+    g, losses = vmap(vg)(theta, batch)
 
     device = next(iter(theta.values())).device
     e = torch.as_tensor(eta, dtype=torch.float32, device=device)
-    z1, u, mom, rho1 = state["z"][0], state["u"], state["mom"], \
-        state["rho"][0]
+    mom = state["mom"] if spec.use_momentum else {}
     new_theta, new_mom = {}, {}
     for key, th in theta.items():
-        r = bcast_rho(rho1[key], th, spec.stack_ndims(key), offset=1)
+        if spec.solo:
+            z = u = r = None
+        else:
+            z = ungroup(state["z"][0][key], levels[0])
+            u = state["u"][key]
+            r = bcast_rho(state["rho"][0][key], th, spec.stack_ndims(key),
+                          offset=1)
         new_theta[key], new_mom[key] = prox_sgd_update(
-            th, g[key], ungroup(z1[key], levels[0]), u[key], mom[key], r, e,
-            momentum=spec.momentum)
+            th, g[key], z, u, mom.get(key), r, e, momentum=spec.momentum)
     out = dict(state)
     out["theta"] = new_theta
-    out["mom"] = new_mom
+    if spec.use_momentum:
+        out["mom"] = new_mom
     return out, torch.mean(losses)
 
 
@@ -305,21 +345,19 @@ def round_metrics(state: dict, info: dict, losses, spec: EngineSpec
     device = info["r_primal"].device
     total = sum(drifts.values()) if drifts \
         else torch.zeros((), dtype=torch.float32, device=device)
+    conv = torch.zeros((), dtype=torch.bool, device=device) if spec.solo \
+        else _converged(state, info, spec.hp)
     return RoundMetrics(losses=torch.atleast_1d(losses),
                         r_primal=info["r_primal"], s_dual=info["s_dual"],
                         drift=torch.as_tensor(total, dtype=torch.float32),
-                        converged=_converged(state, info, spec.hp),
-                        drift_by_rule=drifts)
+                        converged=conv, drift_by_rule=drifts)
 
 
-def round_step(state: dict, superbatch: dict, loss_fn: Callable,
-               spec: EngineSpec, eta, grad_accum: int = 1,
-               frozen: bool = False) -> tuple[dict, RoundMetrics]:
-    """One full H-SADMM outer round: E local prox-SGD steps over a stacked
-    ``(E, W, ...)`` superbatch (a Python loop in place of ``lax.scan``),
-    then the hierarchical consensus (Phases 2-5).  Nothing is read back
-    to the host: telemetry stays on the device in :class:`RoundMetrics`."""
-    from .consensus import consensus_step
+def _local_scan(state: dict, superbatch: dict, loss_fn: Callable,
+                spec: EngineSpec, eta, grad_accum: int
+                ) -> tuple[dict, torch.Tensor]:
+    """E local prox-SGD steps over a stacked ``(E, W, ...)`` superbatch (a
+    Python loop in place of ``lax.scan``) -> (state, (E,) losses)."""
     E = next(iter(superbatch.values())).shape[0]
     losses = []
     for e in range(E):
@@ -327,17 +365,61 @@ def round_step(state: dict, superbatch: dict, loss_fn: Callable,
                                          superbatch.items()},
                                  loss_fn, spec, eta, grad_accum=grad_accum)
         losses.append(loss)
+    return state, torch.stack(losses)
+
+
+def round_step(state: dict, superbatch: dict, loss_fn: Callable,
+               spec: EngineSpec, eta, grad_accum: int = 1,
+               frozen: bool = False) -> tuple[dict, RoundMetrics]:
+    """One full H-SADMM outer round: E local prox-SGD steps over a stacked
+    ``(E, W, ...)`` superbatch, then the hierarchical consensus (Phases
+    2-5).  Nothing is read back to the host: telemetry stays on the
+    device in :class:`RoundMetrics`."""
+    from .consensus import consensus_step
+    state, losses = _local_scan(state, superbatch, loss_fn, spec, eta,
+                                grad_accum)
     state, info = consensus_step(state, spec, frozen=frozen, detail=False)
-    return state, round_metrics(state, info, torch.stack(losses), spec)
+    return state, round_metrics(state, info, losses, spec)
 
 
-def round_step_overlapped(*args, **kw):
-    raise NotImplementedError(
-        "overlapped rounds (staleness=1) come in a later slice of the "
-        "PyTorch port")
+def round_step_overlapped(state: dict, superbatch: dict, loss_fn: Callable,
+                          spec: EngineSpec, eta, grad_accum: int = 1,
+                          frozen: bool = False) -> tuple[dict, RoundMetrics]:
+    """One overlapped round (``HsadmmConfig.staleness=1``): the consensus
+    runs over the state as it comes in (the theta of the previous round's
+    local steps), and this round's E local steps start from that same
+    input state, anchored to the one-round-stale z and u.  The output is
+    the consensus's state (z, v, u, rho, masks, wire error feedback, k)
+    with theta and mom from the local steps.
+
+    Both halves only read the input state: every op on either path
+    allocates its outputs.  They are launched one after the other on the
+    current stream (consensus first); on one card there is no fabric to
+    overlap.  The returned state carries one pending, un-reduced theta:
+    :func:`flush_pipeline` drains it.  In solo mode there is no consensus
+    to overlap, and this is :func:`round_step`."""
+    from .consensus import consensus_step
+    if spec.solo:
+        return round_step(state, superbatch, loss_fn, spec, eta,
+                          grad_accum=grad_accum, frozen=frozen)
+    cstate, info = consensus_step(state, spec, frozen=frozen, detail=False)
+    scanned, losses = _local_scan(state, superbatch, loss_fn, spec, eta,
+                                  grad_accum)
+    out = dict(cstate)
+    out["theta"] = scanned["theta"]
+    if spec.use_momentum:
+        out["mom"] = scanned["mom"]
+    return out, round_metrics(out, info, losses, spec)
 
 
-def flush_pipeline(*args, **kw):
-    raise NotImplementedError(
-        "flush_pipeline (overlapped rounds) comes in a later slice of the "
-        "PyTorch port")
+def flush_pipeline(state: dict, spec: EngineSpec, frozen: bool = False
+                   ) -> tuple[dict, RoundMetrics]:
+    """Drain an overlapped pipeline: one consensus-only step over the state
+    as it is (no local steps, empty losses).  The state is then what a
+    sequential round would have left, ready for ``Engine.reconfigure``."""
+    from .consensus import consensus_step
+    state, info = consensus_step(state, spec, frozen=frozen, detail=False)
+    device = info["r_primal"].device
+    return state, round_metrics(
+        state, info, torch.zeros((0,), dtype=torch.float32, device=device),
+        spec)

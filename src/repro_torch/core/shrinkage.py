@@ -252,8 +252,11 @@ def compact_state(state: dict, plan: SparsityPlan, idxs: dict,
     for g in _LEAD_GROUPS:
         if g in state:
             out[g] = compact_params(state[g], plan, idxs, offset=1)
-    out["z"] = [compact_params(z, plan, idxs, offset=1) for z in state["z"]]
-    out["v"] = [compact_params(v, plan, idxs, offset=1) for v in state["v"]]
+    if "z" in state:   # a solo state has no consensus variables
+        out["z"] = [compact_params(z, plan, idxs, offset=1)
+                    for z in state["z"]]
+        out["v"] = [compact_params(v, plan, idxs, offset=1)
+                    for v in state["v"]]
     if "wire" in state:
         out["wire"] = _migrate_wire(
             state["wire"], wire_compact,
@@ -277,8 +280,9 @@ def expand_state(state: dict, plan: SparsityPlan, idxs: dict, fulls: dict,
     for g in _LEAD_GROUPS:
         if g in state:
             out[g] = exp(state[g])
-    out["z"] = [exp(z) for z in state["z"]]
-    out["v"] = [exp(v) for v in state["v"]]
+    if "z" in state:
+        out["z"] = [exp(z) for z in state["z"]]
+        out["v"] = [exp(v) for v in state["v"]]
     if "wire" in state:
         out["wire"] = _migrate_wire(state["wire"], wire_compact, exp)
     out["masks"] = {name: dict(m, drift=torch.zeros_like(m["drift"]))

@@ -12,8 +12,12 @@ Physical reconfiguration (:meth:`Engine.reconfigure`) builds the engine
 of the budget-B model and migrates the whole state onto it on the same
 device.  :meth:`Engine.with_class_weights` gives an engine whose
 consensus carries per-coupling-class weights (``dist.ft.class_scoped``
-policies).  Overlapped rounds and the compiled-HLO introspection wait for
-later slices of the port.
+policies), :meth:`Engine.with_staleness` one whose rounds run overlapped
+(``HsadmmConfig.staleness=1``: ``round_step_fn`` hands out
+``round_step_overlapped``, and ``flush_pipeline_fn`` drains it).
+``local_step_fn`` and ``consensus_step_fn`` are the per-step dispatch
+path's functions.  The compiled-HLO introspection waits for a later slice
+of the port.
 """
 from __future__ import annotations
 
@@ -23,8 +27,10 @@ from typing import Optional
 import torch
 
 from ..configs.base import ConsensusSpec, ShapeConfig
-from ..core.hsadmm import (EngineSpec, identity_mask_state, init_state,
-                           round_step)
+from ..core.consensus import consensus_step
+from ..core.hsadmm import (EngineSpec, flush_pipeline, identity_mask_state,
+                           init_state, local_step, round_step,
+                           round_step_overlapped)
 from ..core.shrinkage import (compact_state, compacting_rule, expand_state,
                               shrunk_plan, shrunk_projection_mask_state)
 from ..device import bind_card_settings, resolve_device
@@ -43,10 +49,11 @@ class Engine:
         self.shape = shape
         self.consensus = consensus or self.cfg.consensus
         self.class_weights = class_weights
-        if self.cfg.hsadmm.staleness != 0:
-            raise NotImplementedError(
-                f"staleness={self.cfg.hsadmm.staleness}: overlapped rounds "
-                "come in a later slice of the PyTorch port")
+        if self.cfg.hsadmm.staleness not in (0, 1):
+            raise ValueError(
+                f"staleness={self.cfg.hsadmm.staleness} is not supported: "
+                "0 (sequential round) and 1 (one-round-stale overlapped "
+                "round) are the implemented depths")
         self.spec = EngineSpec(
             plan=bundle.plan, consensus=self.consensus, hp=self.cfg.hsadmm,
             stack_map=tuple(bundle.stack_map), class_weights=class_weights)
@@ -70,6 +77,14 @@ class Engine:
             wire_inter=inter if inter is not None else hp.wire_inter,
             wire_map=tuple(wire_map) if wire_map is not None
             else hp.wire_map)
+        bundle = dataclasses.replace(self.bundle,
+                                     cfg=self.cfg.replace(hsadmm=hp))
+        return self._derive(bundle)
+
+    def with_staleness(self, staleness: int) -> "Engine":
+        """A new Engine running its rounds at the given overlap depth
+        (``HsadmmConfig.staleness``: 0 sequential, 1 overlapped)."""
+        hp = dataclasses.replace(self.cfg.hsadmm, staleness=staleness)
         bundle = dataclasses.replace(self.bundle,
                                      cfg=self.cfg.replace(hsadmm=hp))
         return self._derive(bundle)
@@ -102,14 +117,42 @@ class Engine:
             return init_state(self.bundle.init(gen, self.device), self.spec)
         return fn
 
+    def local_step_fn(self):
+        """``fn(state, batch, eta) -> (state, mean loss)``: one local
+        prox-SGD step on every worker (the per-step dispatch path)."""
+        ga = max(self.cfg.grad_accum, 1)
+
+        def fn(state, batch, eta):
+            return local_step(state, batch, self.bundle.train_loss,
+                              self.spec, eta, grad_accum=ga)
+        return fn
+
+    def consensus_step_fn(self, frozen: bool):
+        """``fn(state) -> (state, info)``: one hierarchical consensus
+        (dynamic or frozen masks) of the per-step dispatch path."""
+        def fn(state):
+            return consensus_step(state, self.spec, frozen=frozen)
+        return fn
+
     def round_step_fn(self, frozen: bool):
         """``fn(state, superbatch, eta) -> (state, RoundMetrics)``: E local
         prox-SGD steps + one hierarchical consensus (dynamic or frozen
-        masks)."""
+        masks); at staleness 1 the overlapped round."""
+        ga = max(self.cfg.grad_accum, 1)
+        step = round_step if self.cfg.hsadmm.staleness == 0 \
+            else round_step_overlapped
+
         def fn(state, superbatch, eta):
-            return round_step(state, superbatch, self.bundle.train_loss,
-                              self.spec, eta, grad_accum=self.cfg.grad_accum,
-                              frozen=frozen)
+            return step(state, superbatch, self.bundle.train_loss,
+                        self.spec, eta, grad_accum=ga, frozen=frozen)
+        return fn
+
+    def flush_pipeline_fn(self, frozen: bool):
+        """``fn(state) -> (state, RoundMetrics)``: the consensus-only drain
+        of an overlapped round sequence (``core.hsadmm.flush_pipeline``).
+        After it the state is what a sequential round would have left."""
+        def fn(state):
+            return flush_pipeline(state, self.spec, frozen=frozen)
         return fn
 
     # ------------------------------------------------------------------ #
@@ -118,7 +161,10 @@ class Engine:
 
     def _boundary_compact_flags(self) -> tuple:
         """Per level boundary: does it ship the physically-shrunk buffer
-        (so its wire error feedback is already at budget-B shapes)?"""
+        (so its wire error feedback is already at budget-B shapes)?  A
+        solo engine has no boundary."""
+        if self.spec.solo:
+            return ()
         return tuple(self.spec.boundary_compact(k)
                      for k in range(1, self.spec.num_levels + 1))
 

@@ -36,9 +36,17 @@ Fault tolerance (``repro_torch.dist.ft``): ``RunConfig.ft_policy`` writes
 ``state["weights"]`` before every round, and a class-scoped policy also
 ``state["class_weights"]`` (switching the engine to per-class weights).
 
+``RunConfig.staleness=1`` runs overlapped rounds (``Engine.with_staleness``);
+before a reconfiguration the loop drains the pipeline
+(``Engine.flush_pipeline_fn``), and its checkpoints hold the state as it
+is, one theta pending.  ``fused_rounds=False`` is the per-step dispatch
+path: E calls of ``local_step_fn`` on single batches, then
+``consensus_step_fn``, with the metrics drained every round; it neither
+overlaps nor reconfigures.  A solo engine (one worker) ships nothing
+between nodes.
+
 Options that later slices of the port bring (automatic wire selection,
-compiled-HLO statistics, overlapped rounds, the per-step dispatch path)
-raise ``NotImplementedError``.
+compiled-HLO statistics) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ from typing import Callable, Optional
 import torch
 
 from ..configs.base import ShapeConfig
+from ..core.hsadmm import round_metrics
 from ..core.shrinkage import mask_sync_bytes, plan_bytes
 from ..data.pipeline import batches, prefetch, superbatches
 from ..data.synthetic import make_stream
@@ -186,8 +195,10 @@ def round_comm_bytes(engine: Engine) -> tuple[int, int, int]:
     boundary ships the compact buffer iff ``compact_from_level`` covers it
     or its codec carries the ``compact`` marker; bytes come from that
     codec's ``wire_bytes``; dynamic rounds add the Phase-3 mask-agreement
-    bytes."""
+    bytes.  A solo engine exchanges nothing."""
     dense_eq, _ = _plan_volume(engine, "dense")
+    if engine.spec.solo:
+        return dense_eq, 0, 0
     codecs = engine.spec.codecs
     dense_w, compact_w = _plan_volume(engine, codecs[-1])
     base = compact_w if engine.spec.boundary_compact(len(codecs), codecs) \
@@ -226,14 +237,6 @@ def _refuse_unported(run: RunConfig) -> None:
             raise NotImplementedError(
                 f"RunConfig.{name}: {what} comes in a later slice of the "
                 "PyTorch port")
-    if run.staleness not in (None, 0):
-        raise NotImplementedError(
-            f"RunConfig.staleness={run.staleness}: overlapped rounds come in "
-            "a later slice of the PyTorch port")
-    if not run.fused_rounds:
-        raise NotImplementedError(
-            "RunConfig.fused_rounds=False: the per-step dispatch path comes "
-            "in a later slice of the PyTorch port")
 
 
 def train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
@@ -252,6 +255,18 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
     if run.wire_intra or run.wire_inter or run.wire_map:
         engine = engine.with_wire(run.wire_intra, run.wire_inter,
                                   run.wire_map)
+    if run.staleness is not None \
+            and run.staleness != engine.cfg.hsadmm.staleness:
+        engine = engine.with_staleness(run.staleness)
+    staleness = engine.cfg.hsadmm.staleness
+    if staleness and not run.fused_rounds:
+        raise ValueError(
+            "staleness >= 1 requires fused_rounds=True: the overlap lives "
+            "inside the round function (the per-step path has no pipeline "
+            "to overlap)")
+    if run.reconfig and not run.fused_rounds:
+        raise ValueError("RunConfig.reconfig requires fused_rounds=True "
+                         "(the reconfigured engine runs fused rounds)")
     per_class = run.ft_policy is not None \
         and getattr(run.ft_policy, "per_class", False)
     if per_class and not engine.class_weights:
@@ -271,9 +286,15 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
     E = max(hp.local_steps, 1)
     stream = make_stream(engine.cfg, run.shape, engine.workers,
                          device=engine.device)
-    it = prefetch(superbatches(batches(stream), E))
-    round_dyn = engine.round_step_fn(frozen=False)
-    round_frz = engine.round_step_fn(frozen=True)
+    if run.fused_rounds:
+        it = prefetch(superbatches(batches(stream), E))
+        round_dyn = engine.round_step_fn(frozen=False)
+        round_frz = engine.round_step_fn(frozen=True)
+    else:
+        it = prefetch(batches(stream))
+        local_fn = engine.local_step_fn()
+        cons_dyn = engine.consensus_step_fn(frozen=False)
+        cons_frz = engine.consensus_step_fn(frozen=True)
     patience = run.reconfig_patience if run.reconfig_patience is not None \
         else hp.reconfig_patience
     rc_engine = None   # the reconfigured engine once the migration ran
@@ -287,6 +308,10 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
             if ckpt.read_meta(last).get("reconfigured"):
                 # the save is at shrunk shapes: rebuild the reconfigured
                 # engine from the aux masks and restore straight into it
+                if not run.fused_rounds:
+                    raise ValueError(
+                        f"checkpoint {last} was saved by a reconfigured "
+                        "run; resuming it needs fused_rounds=True")
                 masks_full = _masks_from_aux(ckpt.load_aux(last),
                                              engine.bundle.plan,
                                              engine.device)
@@ -302,11 +327,10 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
     if state is None:
         state = engine.init_state_fn()(run.seed)
     dense_eq_b, dyn_b, frz_b = round_comm_bytes(engine)
-    report = TrainReport(wire_map=[c.name for c in engine.spec.codecs])
+    report = TrainReport(wire_map=_wire_map(engine))
     if rc_engine is not None:
         _, _, frz_b = round_comm_bytes(rc_engine)
-        report.wire_map_reconfigured = \
-            [c.name for c in rc_engine.spec.codecs]
+        report.wire_map_reconfigured = _wire_map(rc_engine)
 
     frozen = rc_engine is not None   # a reconfigured resume is frozen
     if frozen:
@@ -314,7 +338,7 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
         report.reconfigured_at = start_k
     stop = False
     eta = torch.tensor(run.eta, dtype=torch.float32, device=engine.device)
-    metrics_every = max(run.metrics_every, 1)
+    metrics_every = max(run.metrics_every, 1) if run.fused_rounds else 1
     pending: list = []   # [(k, was_frozen, RoundMetrics-on-device)]
     t_block = time.perf_counter()
     host_overhead = 0.0  # save/eval host time, excluded from round walls
@@ -371,11 +395,15 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
             if stop:
                 break   # converged in the drained block
             t_r = time.perf_counter()
+            if staleness:
+                # the overlapped state still carries one un-reduced theta:
+                # reduce it, so that the migration moves a buffer the
+                # frozen masks describe
+                state, _ = engine.flush_pipeline_fn(frozen=True)(state)
             rc_engine, state = engine.reconfigure(state)
             if engine.device.type == "cuda":
                 torch.cuda.synchronize(engine.device)
-            report.wire_map_reconfigured = \
-                [c.name for c in rc_engine.spec.codecs]
+            report.wire_map_reconfigured = _wire_map(rc_engine)
             round_frz = rc_engine.round_step_fn(frozen=True)
             _, _, frz_b = round_comm_bytes(rc_engine)
             report.reconfigured_at = k
@@ -395,7 +423,14 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
                     cw[name] = _weights(v, engine.device)
                 state["class_weights"] = cw
         was_frozen = frozen
-        state, m = (round_frz if frozen else round_dyn)(state, next(it), eta)
+        if run.fused_rounds:
+            state, m = (round_frz if frozen else round_dyn)(state, next(it),
+                                                            eta)
+        else:
+            for _ in range(E):   # the per-step dispatch path
+                state, loss = local_fn(state, next(it), eta)
+            state, info = (cons_frz if frozen else cons_dyn)(state)
+            m = round_metrics(state, info, loss, engine.spec)
         pending.append((k, was_frozen, m))
         report.executables.append(
             "reconfigured" if (was_frozen and rc_engine is not None)
@@ -438,6 +473,12 @@ def _train(engine: Engine, run: RunConfig) -> tuple[dict, TrainReport]:
     if run.ckpt_dir:
         ckpt.flush()   # background saves are on disk once train() returns
     return state, report
+
+
+def _wire_map(engine: Engine) -> Optional[list]:
+    """Codec spec per level boundary (None for a solo engine, which has
+    no exchange)."""
+    return None if engine.spec.solo else [c.name for c in engine.spec.codecs]
 
 
 def _weights(v, device) -> torch.Tensor:

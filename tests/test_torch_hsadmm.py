@@ -1,9 +1,11 @@
 """Differential tests of the port's H-SADMM round against the JAX
 reference: from one carried-across state, one local step, one dynamic and
 one frozen consensus step, and one whole round, for a dense, a compact+q8
-and a compact+q4 inter-node boundary (resnet-smoke, levels (2, 2)).  The JAX
-side quantizes with IEEE division of the scale, as the port does (see
-``torch_port_helpers``)."""
+and a compact+q4 inter-node boundary (resnet-smoke, levels (2, 2)); a local
+step with microbatch accumulation (``grad_accum=2``) and one without
+momentum, and the momentum-free state through ``convert`` and checkpoints
+both ways.  The JAX side quantizes with IEEE division of the scale, as the
+port does (see ``torch_port_helpers``)."""
 import dataclasses
 
 import pytest
@@ -36,14 +38,16 @@ WIRES = ["dense", "compact+q8", "compact+q4"]
 ETA = 1e-2
 
 
-def _specs(wire):
+def _specs(wire, use_momentum=True):
     hp = dataclasses.replace(HP, wire_inter=wire)
     jb = j_build(get_config("resnet18", smoke=True).replace(hsadmm=hp))
     tb = t_build(t_get_config("resnet18", smoke=True).replace(hsadmm=hp))
     jspec = jhs.EngineSpec(plan=jb.plan, consensus=LEVELS, hp=hp,
-                           stack_map=tuple(jb.stack_map))
+                           stack_map=tuple(jb.stack_map),
+                           use_momentum=use_momentum)
     tspec = ths.EngineSpec(plan=tb.plan, consensus=LEVELS, hp=hp,
-                           stack_map=tuple(tb.stack_map))
+                           stack_map=tuple(tb.stack_map),
+                           use_momentum=use_momentum)
     return jb, tb, jspec, tspec
 
 
@@ -140,3 +144,74 @@ def test_round_step_matches_reference(start, wire):
     np.testing.assert_allclose(float(tm.r_primal), float(jm.r_primal),
                                rtol=1e-4)
     assert float(tm.drift) == float(jm.drift)
+
+
+@pytest.mark.parametrize("grad_accum,use_momentum", [(2, True), (1, False)])
+def test_local_step_options_match_reference(start, grad_accum, use_momentum):
+    """``grad_accum=2`` (two contiguous microbatches a worker, gradients
+    summed and halved) and ``use_momentum=False`` (no ``mom`` in the
+    state, the plain update) against the JAX ``local_step``."""
+    st, sb = start
+    jb, tb, jspec, tspec = _specs("dense", use_momentum)
+    if not use_momentum:
+        st = {k: v for k, v in st.items() if k != "mom"}
+    batch = {k: v[0] for k, v in sb.items()}
+    assert batch["images"].shape[1] % grad_accum == 0
+    with jax_reference():
+        jst, jloss = jax.jit(lambda s, b: jhs.local_step(
+            s, b, jb.train_loss, jspec, ETA, grad_accum=grad_accum))(
+                _jnp(st), _jnp(batch))
+    tst, tloss = ths.local_step(
+        _port_state(st), {k: torch.from_numpy(v) for k, v in batch.items()},
+        tb.train_loss, tspec, ETA, grad_accum=grad_accum)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=RTOL)
+    assert sorted(tst) == sorted(jst)
+    assert ("mom" in tst) == use_momentum
+    assert_tree_close(tst["theta"], jst["theta"], RTOL, ATOL)
+    if use_momentum:
+        assert_tree_close(tst["mom"], jst["mom"], RTOL, ATOL)
+
+
+def test_momentum_free_init_state_matches_reference():
+    jb, tb, jspec, tspec = _specs("dense", use_momentum=False)
+    jst = jax.device_get(jhs.init_state(jb.init(jax.random.PRNGKey(0)),
+                                        jspec))
+    tst = ths.init_state(convert.params_from_jax(
+        jax.device_get(jb.init(jax.random.PRNGKey(0))), "cpu"), tspec)
+    assert "mom" not in tst and sorted(tst) == sorted(jst)
+    _assert_state(tst, jst)
+
+
+def test_momentum_free_state_crosses_both_packages(start, tmp_path):
+    """A momentum-free state through ``convert`` both ways, and through a
+    checkpoint saved by each package and restored by the other."""
+    from repro.dist import checkpoint as jckpt
+    from repro_torch.dist import checkpoint as ckpt
+    st, _ = start
+    jb, tb, jspec, tspec = _specs("dense", use_momentum=False)
+    st = {k: v for k, v in st.items() if k != "mom"}
+    tst = _port_state(st)
+    assert "mom" not in tst
+    ref = jckpt._flatten(st)
+    back = jckpt._flatten(convert.state_to_jax(tst))
+    assert set(back) == set(ref)
+    for p, a in ref.items():
+        np.testing.assert_array_equal(back[p], np.asarray(a), err_msg=p)
+    jckpt.save(str(tmp_path / "jax"), _jnp(st), {"step": 1})
+    ttmpl = ths.init_state({k: torch.zeros(shape) for k, shape in
+                            tb.shapes.items()}, tspec)
+    got, _ = ckpt.restore(ckpt.latest(str(tmp_path / "jax")), ttmpl)
+    got, want = ckpt._flatten(got), ckpt._flatten(tst)
+    assert set(got) == set(want)
+    for p, x in want.items():
+        assert torch.equal(got[p], x), p
+    ckpt.save(str(tmp_path / "port"), tst, {"step": 1})
+    ckpt.flush()
+    jtmpl = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), jax.eval_shape(
+        lambda: jhs.init_state(jb.init(jax.random.PRNGKey(0)), jspec)))
+    jback, _ = jckpt.restore(jckpt.latest(str(tmp_path / "port")), jtmpl)
+    jback = jckpt._flatten(jax.device_get(jback))
+    assert set(jback) == set(ref)
+    for p, a in ref.items():
+        np.testing.assert_array_equal(np.asarray(jback[p]), np.asarray(a),
+                                      err_msg=p)

@@ -101,13 +101,89 @@ def test_engine_runs_on_the_card_unless_asked():
 
 @pytest.mark.parametrize("option", [
     {"wire_auto": True},
-    {"hlo_stats": True}, {"staleness": 1}, {"fused_rounds": False},
+    {"hlo_stats": True},
 ])
 def test_unported_options_refuse(option):
     bundle = t_build(t_get_config("resnet18", smoke=True))
     eng = Engine(bundle, SHAPE, consensus=LEVELS, device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         train(eng, RunConfig(outer_iters=1, shape=SHAPE, log=None, **option))
+
+
+def test_engine_rejects_unsupported_staleness():
+    hp = dataclasses.replace(HP, staleness=2)
+    with pytest.raises(ValueError, match="staleness=2"):
+        Engine(t_build(t_get_config("resnet18", smoke=True)
+                       .replace(hsadmm=hp)), SHAPE, consensus=LEVELS,
+               device="cpu")
+
+
+@pytest.mark.parametrize("option,match", [
+    ({"staleness": 1}, "fused_rounds"),
+    ({"reconfig": True}, "fused_rounds"),
+])
+def test_per_step_path_refuses_overlap_and_reconfig(option, match):
+    """The per-step dispatch path neither overlaps nor reconfigures (as in
+    the reference)."""
+    eng = Engine(t_build(t_get_config("resnet18", smoke=True)), SHAPE,
+                 consensus=LEVELS, device="cpu")
+    with pytest.raises(ValueError, match=match):
+        train(eng, RunConfig(outer_iters=1, shape=SHAPE, log=None,
+                             fused_rounds=False, **option))
+
+
+@pytest.fixture(scope="module")
+def per_step():
+    """5 rounds of the per-step dispatch path (``fused_rounds=False``) in
+    both packages, and of the port's fused rounds, masks frozen at round
+    3, compact+q8 at levels (2, 2)."""
+    hp = dataclasses.replace(HP, local_steps=2, t_freeze=3)
+    jb = j_build(get_config("resnet18", smoke=True).replace(hsadmm=hp))
+    p0 = jax.device_get(jb.init(jax.random.PRNGKey(0)))
+    kw = dict(outer_iters=5, shape=SHAPE, eta=1e-2, metrics_every=2,
+              log=None)
+    with jax_reference(ieee_quantize=True):
+        _, jrep = j_train(JEngine(jb, make_host_mesh(), SHAPE,
+                                  consensus=LEVELS),
+                          fused_rounds=False, **kw)
+    tb = t_build(t_get_config("resnet18", smoke=True).replace(hsadmm=hp))
+    tb = dataclasses.replace(
+        tb, init=lambda gen, device: convert.params_from_jax(p0, device))
+    out = {}
+    for fused in (True, False):
+        out[fused] = train(Engine(tb, SHAPE, consensus=LEVELS, device="cpu"),
+                           RunConfig(fused_rounds=fused, **kw))
+    return jrep, out
+
+
+def test_per_step_path_matches_reference(per_step):
+    """The JAX package's own tolerances for its fused and per-step loops
+    (``test_fused_round.py::test_fused_and_legacy_loop_agree``)."""
+    jrep, out = per_step
+    _, trep = out[False]
+    np.testing.assert_allclose(trep.losses, jrep.losses, rtol=2e-4)
+    np.testing.assert_allclose(trep.r_primal, jrep.r_primal, rtol=2e-3)
+    assert trep.frozen_at == jrep.frozen_at == 3
+    assert trep.executables == jrep.executables
+    assert trep.comm_bytes_internode == jrep.comm_bytes_internode
+
+
+def test_per_step_path_is_bit_equal_to_fused_rounds(per_step):
+    """Both paths run the same ops on the same batches: equal losses,
+    residuals and final state, bit for bit."""
+    _, out = per_step
+    (fst, frep), (pst, prep) = out[True], out[False]
+    assert prep.losses == frep.losses
+    assert prep.r_primal == frep.r_primal
+    assert prep.executables == frep.executables
+    for grp in ("theta", "mom", "u"):
+        for key, x in fst[grp].items():
+            assert torch.equal(pst[grp][key], x), (grp, key)
+    for zf, zp in zip(fst["z"], pst["z"]):
+        for key, x in zf.items():
+            assert torch.equal(zp[key], x), key
+    for rule, m in fst["masks"].items():
+        assert torch.equal(pst["masks"][rule]["idx"], m["idx"]), rule
 
 
 def _port_files():
