@@ -15,6 +15,9 @@
     python3 chip_smoke.py --variants   # phases 1 and 9 alone, 9 against a
                                        # run of phase 3's configuration
                                        # (no result line)
+    python3 chip_smoke.py --dense      # phases 1 and 10 alone, with a
+                                       # profiled round (no result
+                                       # line)
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -171,7 +174,33 @@ Phases (any failure exits non-zero and prints no result line):
 9f. phase 3's configuration without momentum, 2 rounds twice: no
    ``mom``, no prox-SGD launch, phase 3's other launches, bit-equal;
 9g. one resnet-smoke overlapped round and one solo round on the card and
-   on the CPU from one state (rtol 1e-4).
+   on the CPU from one state (rtol 1e-4);
+10. the prox update, quantize_rows, gather_groups and group_norms_sq
+   against their plain versions at tinyllama's operands (seeded data of
+   phase 10a's shapes: 12 leaves at W = 4, the 12 payload leaves at 2
+   nodes, the ffn rule's single columns in 16 shards and the heads
+   rule's 512-wide slabs, 7 score views), timed as in phase 2;
+10a. H-SADMM training of tinyllama-1.1b at full width with 3 of its 22
+   layers (263,206,912 parameters in 12 leaves, f32), W = 4 at levels
+   (2, 2), compact+q8, one 4096-token sequence per worker, E = 8, eta
+   1e-3, masks frozen after round 2, reconfiguration after one frozen
+   round, 6 rounds: finite losses, frozen at 2, reconfigured at 3 onto
+   d_ff 2816 and 2 GQA groups (197,146,624 parameters), the reference's
+   bytes (198,057,036 dynamic, 197,989,404 frozen and reconfigured), 96
+   prox, 12 quantize and 4 gather launches a round (12 more in the
+   migration round), 7 group-norm launches a dynamic round, the peak
+   under 60 GB; the steady medians of the full and the reconfigured
+   rounds, tokens per second, the migration's ms (``--dense`` alone: one
+   more reconfigured round under the profiler);
+10b. phase 10a again, bit-equal; its first two rounds under
+   ``torch.use_deterministic_algorithms`` on the kernel route and on the
+   plain route, bit-equal;
+10c. one dynamic and one reconfigured tinyllama smoke round (8 query
+   heads in 4 GQA groups) on the card and on the CPU (rtol 1e-4);
+10d. one layer's attention at phase 10a's shapes: the ChunkedAttention
+   Function against plain autograd through the plain function, the same
+   forward bits and gradients within rtol 1e-5, with each one's time and
+   peak memory.
 
 ``--wire`` runs phase 1, then phase 2's quantize_rows, quantize_pack_q4
 (ResNet only), gather_groups and group_norms_sq checks and times at the
@@ -192,6 +221,7 @@ It prints one fact per line, then the card's name and power limit, a
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import shutil
@@ -302,6 +332,16 @@ def kernel_split(fn, reps: int) -> dict:
     return split
 
 
+def pieces_ms(pieces, reps: int) -> float:
+    """Device ms of calling each of ``pieces`` once: the sum of each
+    one's own kernel time (``kernel_split``).  Late in the full script a
+    profiler window over a run of many launches kept only some of them
+    (the sums came out under the bytes bound), while windows over one
+    piece kept theirs; so a row's kernel time adds up its pieces."""
+    return sum(sum(v[0] for v in kernel_split(p, reps).values())
+               for p in pieces)
+
+
 def ptxas_lines(log: str) -> list[str]:
     """One line per kernel of an ``nvcc -Xptxas -v`` log: its registers,
     static shared memory and spill bytes (stores/loads)."""
@@ -382,20 +422,22 @@ def check_prox(torch, shapes, W, dev):
     nbytes = 28.0 * n + 4.0 * rows + 4.0     # 5 reads + 2 writes, rho, eta
     b_ms, b_by = bound(nbytes, 8.0 * n)
     out = []
-    for name, kern, plain, err in (
+    for name, one, plain, err in (
             ("fused_prox_sgd_dyn",
-             lambda: [fp.fused_prox_sgd_dyn(*xs, r, eta, momentum=0.9)
-                      for xs, r in leaves],
+             lambda xs, r: fp.fused_prox_sgd_dyn(*xs, r, eta, momentum=0.9),
              lambda: [ref.fused_prox_sgd_ref(*xs, eta=eta, rho=r,
                                              momentum=0.9)
                       for xs, r in leaves], err_dyn),
             ("fused_prox_sgd",
-             lambda: [fp.fused_prox_sgd(*xs, eta=1e-2, rho=1e-3,
-                                        momentum=0.9) for xs, _ in leaves],
+             lambda xs, _: fp.fused_prox_sgd(*xs, eta=1e-2, rho=1e-3,
+                                             momentum=0.9),
              lambda: [ref.fused_prox_sgd_ref(*xs, eta=1e-2, rho=1e-3,
                                              momentum=0.9)
                       for xs, _ in leaves], err_sc)):
-        (ms, stream), (plain_ms, _) = kernel_ms(kern, 20), kernel_ms(plain, 5)
+        ms = pieces_ms([functools.partial(one, xs, r) for xs, r in leaves],
+                       20)
+        stream = cuda_ms(lambda: [one(xs, r) for xs, r in leaves], 20)
+        plain_ms, _ = kernel_ms(plain, 5)
         say(f"{name}: {len(leaves)} leaves, {n} elements: kernel {ms:.4f} "
             f"ms on the device ({stream:.4f} ms on the stream), plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
@@ -448,7 +490,9 @@ def check_quantize(torch, payload_shapes, lead, dev, label="resnet18"):
     rows = sum(x.shape[0] for x in xs)
     n = sum(x.numel() for x in xs)
     b_ms, b_by = bound(5.0 * n + 4.0 * rows, 7.0 * n)
-    ms, stream = kernel_ms(lambda: [wire.quantize_rows(x) for x in xs], 20)
+    ms = pieces_ms([functools.partial(wire.quantize_rows, x) for x in xs],
+                   20)
+    stream = cuda_ms(lambda: [wire.quantize_rows(x) for x in xs], 20)
     plain_ms, _ = kernel_ms(lambda: [ref.quantize_rows_ref(x) for x in xs], 5)
     say(f"quantize_rows ({label}): {len(xs)} leaves, {n} elements: kernel "
         f"{ms:.4f} ms on the device ({stream:.4f} ms on the stream), plain "
@@ -1216,7 +1260,9 @@ def check_gather(torch, calls, dev, label="resnet18"):
     nbytes = sum(_gather_bytes(x, i, g)[0] for x, i, _, g in jobs)
     old = sum(_gather_bytes(x, i, g)[1] for x, i, _, g in jobs)
     b_ms, b_by = bound(nbytes, 0.0)
-    ms, stream = kernel_ms(lambda: run_gathers(compact, calls), 20)
+    ms = pieces_ms([functools.partial(compact.gather_table, c)
+                    for c in calls], 20)
+    stream = cuda_ms(lambda: run_gathers(compact, calls), 20)
     plain_ms, _ = kernel_ms(lambda: [ref.gather_groups_ref(*j)
                                      for j in jobs], 5)
     lib = _gather_library(torch, jobs)
@@ -1444,8 +1490,10 @@ def check_group_norms(torch, norms, dev, label="resnet18"):
         f"version and the same bits on a second run; max abs err {err}")
     n = sum(v.numel() for v in views)
     b_ms, b_by = _norms_bound(torch, views)
-    ms, stream = kernel_ms(lambda: [group_norms.group_norms_sq(v)
-                                    for v in views], 20)
+    ms = pieces_ms([functools.partial(group_norms.group_norms_sq, v)
+                    for v in views], 20)
+    stream = cuda_ms(lambda: [group_norms.group_norms_sq(v) for v in views],
+                     20)
     plain_ms, _ = kernel_ms(lambda: [ref.group_norms_sq_ref(v)
                                      for v in views], 5)
     lib_ms, _ = kernel_ms(lambda: [_einsum(torch, v) for v in views], 20)
@@ -2192,25 +2240,37 @@ def _to(tree, dev):
 
 
 def smoke_reconfig_cpu_vs_card(torch, dev):
-    """Phase 4b: one reconfigured resnet-smoke round over compact+q4 from
-    one migrated state on the card and on the CPU (plain versions); theta
-    and z agree to rtol 1e-4, the mask idx are equal."""
+    """Phase 4b: one reconfigured resnet-smoke round over compact+q4
+    (``reconfigured_round_cpu_vs_card``)."""
+    from repro_torch.configs import HsadmmConfig, ShapeConfig, get_config
+    hp = HsadmmConfig(rho1=1e-3, rho2=1e-4, local_steps=8,
+                      wire_inter="compact+q4")
+    reconfigured_round_cpu_vs_card(
+        torch, dev, get_config("resnet18", smoke=True).replace(hsadmm=hp),
+        ShapeConfig("s", "train", 16, 16), 1e-2,
+        "smoke reconfigured round", "stem")
+
+
+def reconfigured_round_cpu_vs_card(torch, dev, cfg, shape, eta, label,
+                                   show):
+    """One reconfigured round of ``cfg`` (W = 4 at levels (2, 2)) from one
+    migrated state on the card and on the CPU (plain versions): two
+    dynamic rounds and a frozen one on the CPU, then on each device the
+    migration (``Engine.reconfigure``) and one frozen round of the
+    reconfigured engine; theta and z agree to rtol 1e-4, the mask idx are
+    equal.  Prints the migrated shape of the leaf ``show``."""
     import numpy as np
-    from repro_torch.configs import (ConsensusSpec, HsadmmConfig,
-                                     ShapeConfig, get_config)
+    from repro_torch.configs import ConsensusSpec
     from repro_torch.data.pipeline import batches, superbatches
     from repro_torch.data.synthetic import make_stream
     from repro_torch.models import build
     from repro_torch.train.engine import Engine
 
-    hp = HsadmmConfig(rho1=1e-3, rho2=1e-4, local_steps=8,
-                      wire_inter="compact+q4")
-    cfg = get_config("resnet18", smoke=True).replace(hsadmm=hp)
-    shape = ShapeConfig("s", "train", 16, 16)
     levels = ConsensusSpec((2, 2), 1)
-    it = superbatches(batches(make_stream(cfg, shape, 4, device="cpu")), 8)
+    it = superbatches(batches(make_stream(cfg, shape, 4, device="cpu")),
+                      cfg.hsadmm.local_steps)
     eng = Engine(build(cfg), shape, consensus=levels, device="cpu")
-    eta = torch.tensor(1e-2)
+    eta = torch.tensor(eta)
     st = eng.init_state_fn()(0)
     for frozen in (False, False, True):       # masks settle, then freeze
         st, _ = eng.round_step_fn(frozen)(st, next(it), eta)
@@ -2235,8 +2295,8 @@ def smoke_reconfig_cpu_vs_card(torch, dev):
         if not torch.equal(cpu["masks"][rule]["idx"],
                            gpu["masks"][rule]["idx"].cpu()):
             raise AssertionError(f"mask idx differ for {rule}")
-    say(f"smoke reconfigured round card vs CPU: stem "
-        f"{tuple(cpu['theta']['stem'].shape)}, theta/z within rtol 1e-4 "
+    say(f"{label} card vs CPU: {show} "
+        f"{tuple(cpu['theta'][show].shape)}, theta/z within rtol 1e-4 "
         f"(max abs diff {worst}), mask idx equal")
 
 
@@ -3521,11 +3581,284 @@ def variants_phase(torch, dev, ref):
     say("phase 9g card vs CPU: ok")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the dense transformer family, TinyLlama-1.1B at full width
+# ---------------------------------------------------------------------------
+
+# 3 of the config's 22 layers: at 4 the run's peak passed 60 GB (62.57 GB
+# on the card); a count of live storage on the CPU at a quarter of the
+# width puts it in the consensus, where the round holds its input state
+# and the new one at once
+DENSE_LAYERS = 3
+DENSE_ROUNDS = 6
+# parameters of phase 10a's model and of its budget-B model (d_ff 2816, 2
+# GQA groups of 8 query heads), and the reference's inter-node bytes of a
+# dynamic / frozen (and reconfigured) round over compact+q8
+# (tests/test_torch_dense_train.py BYTES)
+DENSE_PARAMS = (263_206_912, 197_146_624)
+DENSE_BYTES = (198_057_036, 197_989_404)
+DENSE_TOKENS = 4 * 4096 * 8   # W x one 4096-token sequence x E a round
+# two leaves of the migrated state: (W, layers, ...) at the budget-B widths
+DENSE_MIGRATED = {"blocks/attn/wq": (4, DENSE_LAYERS, 2048, 2, 8, 64),
+                  "blocks/mlp/wd": (4, DENSE_LAYERS, 2816, 2048)}
+
+
+def dense_engine(torch, dev, layers=DENSE_LAYERS, smoke=False):
+    """Phase 10a's engine: tinyllama-1.1b at full width (or its smoke
+    config with 8 query heads in 4 GQA groups, so that ``heads`` prunes),
+    ``layers`` layers, f32, W = 4 at levels (2, 2), compact+q8 from level
+    1, masks frozen after round 2, reconfiguration after one frozen round;
+    one 4096-token sequence (32 in the smoke config) per worker."""
+    import dataclasses
+    from repro_torch.configs import ConsensusSpec, ShapeConfig, get_config
+    from repro_torch.models import build
+    from repro_torch.train.engine import Engine
+    cfg = get_config("tinyllama-1.1b", smoke=smoke)
+    hp = dataclasses.replace(cfg.hsadmm, t_freeze=2, reconfig_patience=1,
+                             wire_inter="compact+q8")
+    cfg = cfg.replace(hsadmm=hp, param_dtype="float32")
+    if smoke:
+        cfg = cfg.replace(n_heads=8, n_kv_heads=4)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    shape = ShapeConfig("train_4k", "train", 32 if smoke else 4096, 4)
+    return Engine(build(cfg), shape,
+                  consensus=ConsensusSpec(levels=(2, 2), compact_from_level=1),
+                  device=dev), shape
+
+
+def run_dense(torch, dev, rounds=DENSE_ROUNDS):
+    """Phase 10a's configuration trained through ``run_path`` (eta 1e-3,
+    ``reconfig=True``)."""
+    return run_path(torch, dense_engine(torch, dev), rounds, 1e-3,
+                    reconfig=True)
+
+
+def dense_round_launches(plan, leaves: int, E: int = 8) -> dict:
+    """The launches one full-width round of phase 10a makes: prox per leaf
+    per local step, one q8 quantize per payload leaf, each rule's
+    compaction and expansion at the inter-node boundary (the reconfigured
+    rounds' all-kept plan too) and, in a dynamic round, the group norms
+    of the ffn rule's 3 and the heads rule's 4 scored leaves."""
+    gathers, views = round_launches(plan)
+    return {"fused_prox_sgd_dyn": leaves * E, "quantize_rows": leaves,
+            "gather_groups": gathers, "group_norms_sq": views,
+            "ssd_chunk_scan": 0, "quantize_pack_q4": 0}
+
+
+def dense_kernels(torch, dev):
+    """Rows 2, 3, 4 and 10 of the kernels line at phase 10a's operands
+    (seeded synthetic data): the prox update on all 12 leaves at W = 4,
+    quantize_rows on the 12 compact payload leaves at 2 nodes, one
+    dynamic round's gathers (the ffn rule's single columns of a 5632-wide
+    axis in 16 shards, the heads rule's 512-wide slabs) and 7 score views;
+    each held against its plain version and timed as in phase 2."""
+    from repro_torch.core.masks import MaskSyncConfig, budget
+    from repro_torch.core.shrinkage import plan_payload_shapes
+    eng, _ = dense_engine(torch, dev)
+    bundle = eng.bundle
+    budgets = {r.name: budget(r, MaskSyncConfig()) for r in bundle.plan.rules}
+    payload = plan_payload_shapes(bundle.shapes, bundle.plan, budgets)
+    out = [k for k in check_prox(torch, bundle.shapes, 4, dev)
+           if k["name"] == "fused_prox_sgd_dyn"]
+    torch.cuda.empty_cache()
+    out += check_quantize(torch, payload, 2, dev, "tinyllama")
+    gathers, norms = round_operands(torch, bundle, 2, dev)
+    out += check_gather(torch, gathers, dev, "tinyllama")
+    del gathers
+    out += check_group_norms(torch, norms, dev, "tinyllama")
+    del norms
+    torch.cuda.empty_cache()
+    return [dict(k, operands="tinyllama") for k in out]
+
+
+def train_dense(torch, dev):
+    """Phase 10a: the dense path through freeze and reconfiguration,
+    checked.  Returns ``run_dense``'s result with the reconfigured
+    engine and the end-to-end numbers under "summary"."""
+    r = run_dense(torch, dev)
+    rep, launches, eng = r["rep"], r["launches"], r["eng"]
+    rc = rep.final_engine
+    n = sum(math.prod(s) for s in eng.bundle.shapes.values())
+    n2 = sum(math.prod(s) for s in rc.bundle.shapes.values())
+    say(f"train tinyllama: tinyllama-1.1b full width, {eng.cfg.n_layers} of "
+        f"22 layers ({n} parameters, {len(eng.bundle.shapes)} leaves, f32), "
+        "W=4 levels (2, 2), compact+q8, one 4096-token sequence per worker, "
+        f"E=8, eta 1e-3, reconfig patience 1, {rep.outer_iters} rounds in "
+        f"{r['wall']:.2f} s; budget-B model d_ff {rc.cfg.d_ff}, "
+        f"{rc.cfg.n_kv_heads} GQA groups of "
+        f"{rc.cfg.n_heads // rc.cfg.n_kv_heads} query heads, {n2} parameters")
+    for k in range(rep.outer_iters):
+        say(f"round {k}: {rep.executables[k]} loss={rep.losses[k]:.6f} "
+            f"wall_ms={rep.wall_times[k] * 1e3:.1f} "
+            f"internode_bytes={rep.comm_bytes_internode[k]} "
+            f"launches={launches[k]}")
+    r_at = rep.reconfigured_at
+    full = [w * 1e3 for w in rep.wall_times[1:r_at]]
+    small = [w * 1e3 for w in rep.wall_times[r_at + 1:]]
+    shapes = {k: tuple(v.shape) for k, v in r["state"]["theta"].items()
+              if k.startswith("blocks/")}
+    summary = {
+        "full_walls_ms": full, "full_median_ms": _median(full),
+        "reconfigured_walls_ms": small,
+        "reconfigured_median_ms": _median(small),
+        "tokens_per_s_full": DENSE_TOKENS / (_median(full) * 1e-3),
+        "tokens_per_s_reconfigured": DENSE_TOKENS / (_median(small) * 1e-3),
+        "migration_ms": rep.reconfig_seconds * 1e3, "peak_bytes": r["peak"]}
+    say(f"frozen_at: {rep.frozen_at} reconfigured_at: {r_at}; migrated "
+        f"shapes {shapes}; wire maps {rep.wire_map} -> "
+        f"{rep.wire_map_reconfigured}")
+    say(f"dense: {json.dumps(summary)}")
+    if not all(math.isfinite(x) for x in rep.losses):
+        raise AssertionError(f"non-finite losses {rep.losses}")
+    want_x = ["dynamic"] * 2 + ["frozen"] \
+        + ["reconfigured"] * (rep.outer_iters - 3)
+    if rep.executables != want_x or rep.frozen_at != 2 or r_at != 3:
+        raise AssertionError(f"executables {rep.executables}, frozen_at "
+                             f"{rep.frozen_at}, reconfigured_at {r_at}")
+    if (n, n2) != DENSE_PARAMS:
+        raise AssertionError(f"parameters {n} / {n2}")
+    if any(shapes[k] != v for k, v in DENSE_MIGRATED.items()):
+        raise AssertionError(f"migrated shapes {shapes}")
+    want_b = [DENSE_BYTES[0]] * 2 + [DENSE_BYTES[1]] * (rep.outer_iters - 2)
+    if rep.comm_bytes_internode != want_b:
+        raise AssertionError(f"bytes {rep.comm_bytes_internode}")
+    want = dense_round_launches(eng.bundle.plan, len(eng.bundle.shapes))
+    gathers = want["gather_groups"]
+    for k, c in enumerate(launches):
+        # the migration before round r_at compacts the six state trees
+        # theta, mom, u, z[0], z[1] and v[0]
+        w = dict(want, group_norms_sq=want["group_norms_sq"]
+                 if rep.executables[k] == "dynamic" else 0,
+                 gather_groups=gathers + (6 * gathers // 2
+                                          if k == r_at else 0))
+        if any(c[name] != v for name, v in w.items()):
+            raise AssertionError(f"round {k} launches {c}; expected {w}")
+    if r["peak"] >= 60e9:
+        raise AssertionError(f"peak {r['peak']} bytes >= 60 GB")
+    r["summary"] = summary
+    r["eng"] = rc
+    return r
+
+
+def determinism_dense(torch, dev, first):
+    """Phase 10b: phase 10a again, bit-equal (losses, mask indices after
+    every round, the final theta and z); then its first two rounds under
+    ``torch.use_deterministic_algorithms`` twice, the kernel route against
+    the plain route (``plain_twins``), bit-equal as well."""
+    again = _slim(run_dense(torch, dev))
+    compare_runs(torch, first, again, "tinyllama")
+    del again
+    torch.use_deterministic_algorithms(True)
+    try:
+        kern = _slim(run_dense(torch, dev, rounds=2))
+        with plain_twins():
+            plain = _slim(run_dense(torch, dev, rounds=2))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    kt, pt = kern["totals"], plain["totals"]
+    if not kt["gather_groups"] or not kt["group_norms_sq"] \
+            or pt["gather_groups"] or pt["group_norms_sq"]:
+        raise AssertionError(f"route launches: kernel {kt}, plain {pt}")
+    compare_runs(torch, kern, plain, "tinyllama kernel route vs plain route")
+    say("tinyllama route vs plain: 2 rounds under "
+        "torch.use_deterministic_algorithms(True); kernel route launches "
+        f"{kt}, plain route gather_groups {pt['gather_groups']} and "
+        f"group_norms_sq {pt['group_norms_sq']}")
+
+
+def smoke_dense_cpu_vs_card(torch, dev):
+    """Phase 10c: one dynamic tinyllama smoke round (8 query heads in 4
+    GQA groups, 2 layers, W = 4 at levels (2, 2), compact+q8, E = 8, eta
+    1e-3) through ``smoke_round_cpu_vs_card``, and one reconfigured round
+    through ``reconfigured_round_cpu_vs_card``."""
+    eng, shape = dense_engine(torch, dev, layers=None, smoke=True)
+    smoke_round_cpu_vs_card(torch, dev, eng.bundle, eng.spec, shape,
+                            ("tokens",), 1e-3, "tinyllama smoke round")
+    reconfigured_round_cpu_vs_card(torch, dev, eng.cfg, shape, 1e-3,
+                                   "tinyllama smoke reconfigured round",
+                                   "blocks/mlp/wg")
+
+
+def attention_layer(torch, dev):
+    """Phase 10d: one layer's attention at phase 10a's shapes (q (4, 4096,
+    4, 8, 64), k and v (4, 4096, 4, 64): the 4 workers folded into the
+    batch rows, as the Function's vmap rule folds them), forward and
+    backward of <out, w>: the ChunkedAttention Function against plain
+    autograd through the plain function (every score block kept): the
+    same forward bits, gradients within rtol 1e-5 (atol 1e-6); each one's
+    peak memory above its inputs and its time (CUDA events)."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q = torch.randn((4, 4096, 4, 8, 64), generator=gen, device=dev)
+    k = torch.randn((4, 4096, 4, 64), generator=gen, device=dev)
+    v = torch.randn((4, 4096, 4, 64), generator=gen, device=dev)
+    w = torch.randn(q.shape, generator=gen, device=dev)
+
+    def fwd_bwd(fn):
+        a = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*a)
+        (out * w).sum().backward()
+        return out.detach(), [x.grad for x in a]
+
+    res, peaks, times = {}, {}, {}
+    for name, fn in (("function", L.chunked_attention),
+                     ("plain autograd", L.chunked_attention_ref)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res[name] = fwd_bwd(fn)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        times[name] = cuda_ms(lambda: fwd_bwd(fn), 2)
+    (of, gf), (op, gp) = res["function"], res["plain autograd"]
+    if not torch.equal(of, op):
+        raise AssertionError("attention: the Function's forward differs from "
+                             "the plain function's")
+    err = 0.0
+    for a, b, what in zip(gf, gp, "qkv"):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6,
+                                   msg=f"attention d{what}")
+        err = max(err, _abs_err(torch, a, b))
+    say(f"attention layer: q {tuple(q.shape)}, k/v {tuple(k.shape)}, chunks "
+        "512: the Function's forward bit-equal to the plain function's, "
+        f"gradients within rtol 1e-5 (max abs diff {err}); forward + "
+        f"backward {times['function']:.1f} ms (Function) vs "
+        f"{times['plain autograd']:.1f} ms (plain autograd); peak above the "
+        f"inputs {peaks['function']} vs {peaks['plain autograd']} bytes")
+    return {"ms": times, "peak_bytes": peaks, "max_abs_diff": err}
+
+
+def dense_phase(torch, dev, profile=False):
+    """Phase 10: the kernel rows at tinyllama's operands, 10a, 10b, 10c
+    and 10d; with ``profile`` (``--dense``) one more reconfigured round of
+    10a's path under the profiler (about a minute: the profiler's host
+    overhead on the round's ~115,000 launches).  Returns (kernels-line
+    entries, 10a's launch totals, 10a's summary)."""
+    kernels = dense_kernels(torch, dev)
+    say("phase 10 kernels vs plain at the tinyllama operands: ok")
+    dense = train_dense(torch, dev)
+    totals, summary = dense["totals"], dense["summary"]
+    say(f"phase 10a train tinyllama: ok, launches {totals}")
+    if profile:
+        summary["busy_reconfigured"], _ = profile_round(
+            torch, dense["eng"], dense["state"], dense["shape"],
+            label="tinyllama reconfigured", eta=1e-3)
+    determinism_dense(torch, dev, _slim(dense))
+    del dense
+    say("phase 10b determinism: ok")
+    smoke_dense_cpu_vs_card(torch, dev)
+    say("phase 10c tinyllama smoke rounds card vs CPU: ok")
+    summary["attention"] = attention_layer(torch, dev)
+    say("phase 10d attention Function vs plain autograd: ok")
+    return kernels, totals, summary
+
+
 def main(argv) -> int:
     if argv not in ([], ["--ssd"], ["--wire"], ["--rounds"],
-                    ["--baselines"], ["--variants"]):
+                    ["--baselines"], ["--variants"], ["--dense"]):
         return fail("usage: chip_smoke.py [--ssd | --wire | --rounds | "
-                    f"--baselines | --variants] (got {argv})")
+                    f"--baselines | --variants | --dense] (got {argv})")
     try:
         import torch
     except ImportError:
@@ -3556,8 +3889,11 @@ def main(argv) -> int:
             for line in ptxas_lines(log):
                 say(f"  ptxas {name}: {line}")
         if argv:   # --ssd: phase 6; --wire: the wire kernels; --rounds;
-            # --baselines: phase 8; --variants: phase 9
-            if argv[0] == "--baselines":
+            # --baselines: phase 8; --variants: phase 9; --dense: phase 10
+            if argv[0] == "--dense":
+                kernels, _, summary = dense_phase(torch, dev, profile=True)
+                say(f"summary tinyllama: {json.dumps(summary)}")
+            elif argv[0] == "--baselines":
                 baselines_phase(torch, dev)
                 kernels = []
             elif argv[0] == "--variants":
@@ -3681,6 +4017,9 @@ def main(argv) -> int:
 
         variants_phase(torch, dev, ref9)
 
+        dense_k, d_totals, d_sum = dense_phase(torch, dev)
+        kernels += dense_k
+
         # the main paths' end-to-end numbers again, next to the result
         say("summary: round wall_ms "
             f"{[round(w * 1e3, 1) for w in rep.wall_times]}, losses "
@@ -3708,6 +4047,7 @@ def main(argv) -> int:
             base.items()) + f"; top-k sparsify "
             f"{base['topk']['sparsify_ms_per_step']:.2f} ms a step, "
             f"{100 * base['topk']['sparsify_share']:.1f}% of a Top-K step")
+        say(f"summary tinyllama: {json.dumps(d_sum)}")
     except Exception as e:   # any phase failing fails the run, loudly
         import traceback
         traceback.print_exc()
@@ -3716,7 +4056,8 @@ def main(argv) -> int:
     # launches: each kernel's count on the path that runs it (phase 3 for
     # prox-SGD, quantize_rows, the gather and the group norms, 3b for the
     # q4 quantizer, 3c for the q4 codec API's gather and unpack kernels,
-    # 3d for the q8 codec API's gather kernels, 6a for the SSD scan)
+    # 3d for the q8 codec API's gather kernels, 6a for the SSD scan; the
+    # rows at the tinyllama operands: 10a)
     paths = {"quantize_pack_q4": ("3b", rc_totals),
              "ssd_chunk_scan": ("6a", m_totals),
              "gather_quantize_q4": ("3c", api),
@@ -3724,7 +4065,8 @@ def main(argv) -> int:
              "gather_quantize": ("3d", api8),
              "gather_dequantize": ("3d", api8)}
     for k in kernels:
-        path, counts = paths.get(k["name"], ("3", totals))
+        path, counts = ("10a", d_totals) if k.get("operands") == "tinyllama" \
+            else paths.get(k["name"], ("3", totals))
         k["launches"], k["launches_path"] = counts[k["name"]], path
     for line in smi:
         say(line)

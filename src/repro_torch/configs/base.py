@@ -1,9 +1,10 @@
 """Architecture / shape / run configuration dataclasses (the port's own
 copy of ``repro.configs.base``).
 
-The ResNet family (``repro_torch.configs.resnet``) and the Mamba2 SSM
-(``repro_torch.configs.mamba2_780m``) are registered in this package, so
-only the fields those two families read are copied; each keeps the
+The ResNet family (``repro_torch.configs.resnet``), the Mamba2 SSM
+(``repro_torch.configs.mamba2_780m``) and the dense transformer
+(``repro_torch.configs.tinyllama_1_1b``) are registered in this package,
+so only the fields those families read are copied; each keeps the
 reference's name and default, so a config means the same run in both
 packages.  A later slice that ports another family copies its fields with
 it.
@@ -107,12 +108,18 @@ class ConsensusSpec:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # "cnn" | "ssm" (the reference also has dense | moe | ...)
+    family: str  # "cnn" | "ssm" | "dense" (the reference also has moe | ...)
 
-    # LM backbone (the fields the SSM family reads)
+    # LM backbone (the fields the dense and SSM families read)
     n_layers: int = 0
     d_model: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_ff: int = 0
     vocab: int = 0
+    head_dim: int = 0
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
     norm_eps: float = 1e-5
 
     # SSM (mamba2 / SSD)
@@ -154,6 +161,10 @@ class ArchConfig:
 
     # which structured groups are pruned (model-dependent, see models/*)
     prune_targets: tuple[str, ...] = ()
+
+    @property
+    def kv_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

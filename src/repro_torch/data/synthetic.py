@@ -75,7 +75,7 @@ class SyntheticImages:
 
 # LM families the port has models for; the others get their token stream
 # with their model
-_LM_FAMILIES = ("ssm",)
+_LM_FAMILIES = ("ssm", "dense")
 
 
 def make_stream(cfg, shape, workers: int, device=None):

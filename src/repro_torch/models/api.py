@@ -26,3 +26,8 @@ class ModelBundle:
     plan: SparsityPlan
     shapes: dict
     stack_map: tuple = (("blocks", 1),)
+
+
+def pad_to(v: int, m: int) -> int:
+    """``v`` rounded up to a multiple of ``m`` (the padded vocabulary)."""
+    return ((v + m - 1) // m) * m

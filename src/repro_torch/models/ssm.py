@@ -31,15 +31,11 @@ from ..core.sparsity import GroupRule, LeafAxis, SparsityPlan, keep_count
 from ..device import resolve_device
 from ..kernels import ops, ref
 from . import layers as L
-from .api import ModelBundle
+from .api import ModelBundle, pad_to
 
 MODEL_AXIS_SIZE = 16
 
 _STACK = "blocks/"
-
-
-def pad_to(v: int, m: int) -> int:
-    return ((v + m - 1) // m) * m
 
 
 def dims(cfg: ArchConfig):
@@ -112,14 +108,6 @@ def init(cfg: ArchConfig, generator: torch.Generator, device=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _fold(t, bdim, n: int):
-    """A vmapped operand with its vmap dim (or None) -> the logical batch
-    rows of all ``n`` vmapped instances as one leading dim."""
-    t = t[None].expand((n,) + tuple(t.shape)) if bdim is None \
-        else t.movedim(bdim, 0)
-    return t.reshape((n * t.shape[1],) + tuple(t.shape[2:]))
-
-
 class SSDScan(torch.autograd.Function):
     """``(y, h) = scan(x, dt, A, B, C, chunk)`` with A of shape (Bt, H).
 
@@ -149,7 +137,8 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, x, dt, A, Bm, Cm, chunk):
         n = info.batch_size
-        folded = [_fold(t, d, n) for t, d in zip((x, dt, A, Bm, Cm), in_dims)]
+        folded = [L.fold_vmapped(t, d, n)
+                  for t, d in zip((x, dt, A, Bm, Cm), in_dims)]
         y, h = SSDScan.apply(*folded, chunk)
         return ((y.reshape((n, -1) + tuple(y.shape[1:])),
                  h.reshape((n, -1) + tuple(h.shape[1:]))), (0, 0))

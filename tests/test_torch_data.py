@@ -1,5 +1,5 @@
-"""The port's synthetic image stream and input pipeline give the JAX
-reference's batches byte for byte."""
+"""The port's synthetic image and token streams and input pipeline give
+the JAX reference's batches byte for byte."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -44,8 +44,23 @@ def test_stream_tensors_go_to_the_requested_device():
     assert b["images"].dtype == torch.float32
     assert b["labels"].dtype == torch.int32
     with pytest.raises(NotImplementedError):
-        t_make_stream(t_get_config("resnet18").replace(family="dense"),
+        t_make_stream(t_get_config("resnet18").replace(family="moe"),
                       shape, 2)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-780m"])
+def test_lm_token_streams_are_byte_identical(arch):
+    """The dense and SSM families' token streams: the JAX ``make_stream``'s
+    batches, byte for byte."""
+    shape = ShapeConfig("t", "train", 32, 8)
+    js = j_make_stream(get_config(arch, smoke=True), shape, 4)
+    ts = t_make_stream(t_get_config(arch, smoke=True), shape, 4,
+                       device="cpu")
+    for step in (0, 7):
+        a, b = np.asarray(js.batch_at(step)["tokens"]), \
+            to_np(ts.batch_at(step)["tokens"])
+        assert a.dtype == b.dtype and a.shape == b.shape == (4, 2, 32)
+        assert a.tobytes() == b.tobytes()
 
 
 def test_prefetch_thread_stops_when_closed():
