@@ -18,6 +18,9 @@
     python3 chip_smoke.py --dense      # phases 1 and 10 alone, with a
                                        # profiled round (no result
                                        # line)
+    python3 chip_smoke.py --bf16       # phases 1 and 11 alone, with a
+                                       # profiled round (no result
+                                       # line)
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -200,7 +203,40 @@ Phases (any failure exits non-zero and prints no result line):
 10d. one layer's attention at phase 10a's shapes: the ChunkedAttention
    Function against plain autograd through the plain function, the same
    forward bits and gradients within rtol 1e-5, with each one's time and
-   peak memory.
+   peak memory;
+11. the configs' own numerics (phases 6 and 10 run the LMs in f32 without
+   recomputation): the bf16 entry of the prox update on every leaf of
+   phase 11a's model at W = 4 and quantize_rows on bf16 rows of its 12
+   compact payload leaves at 2 nodes (seeded data; edge widths with NaN
+   and inf rows): bit-equal to their plain versions, to their f32 routes
+   (the prox update computed in f32 with a round to bf16 after every
+   operation; the same rows as f32) and to a second launch, timed beside
+   the f32 entry on the same values and against the bound at 2-byte
+   operands;
+11a. tinyllama-1.1b at full width with BF16_LAYERS of its 22 layers as
+   its config has it (bfloat16 parameters and ADMM state, remat),
+   phase 10a's setup otherwise (W = 4 at levels (2, 2), compact+q8, one
+   4096-token sequence per worker, E = 8, eta 1e-3, frozen after round 2,
+   reconfigured after one frozen round, 6 rounds): finite losses, the
+   reference's bytes at that depth, 10a's launches every round, the peak
+   under 60 GB; the steady medians, tokens per second, the migration;
+11b. phase 11a again (through the freeze, the migration and the
+   reconfigured rounds): losses, mask indices after every round and the
+   final theta and z bit-equal;
+11c. mamba2-780m at full width with BF16_MAMBA_LAYERS of its 48 layers,
+   bfloat16 and remat, phase 6a's setup, 3 rounds: finite losses, the
+   reference's bytes, two scan launches a layer and local step (the
+   forward, then its recomputation in the backward), the peak under 60
+   GB, the scan's bf16 time at its training operands; the run again,
+   bit-equal;
+11d. one bf16 tinyllama smoke round and one bf16 mamba2 smoke round on
+   the card and on the CPU from one state (rtol = atol = 2e-2);
+11e. one round of phase 10a's configuration (f32, 3 layers) with remat
+   and without, from one state: losses, mask indices and every state
+   tensor bit-equal; both peaks;
+11f. (``--bf16`` only) 11e at phase 11a's configuration (bf16,
+   BF16_LAYERS layers): what remat saves where activations are a large
+   share of the peak.
 
 ``--wire`` runs phase 1, then phase 2's quantize_rows, quantize_pack_q4
 (ResNet only), gather_groups and group_norms_sq checks and times at the
@@ -243,7 +279,14 @@ NORMS_SRC = "src/repro_torch/kernels/csrc/group_norms.cu"
 SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 
 
+_T0 = time.perf_counter()
+
+
 def say(*parts):
+    """One fact a line; a phase's closing line carries the script's
+    elapsed seconds."""
+    if parts and str(parts[0]).startswith("phase "):
+        parts = parts + (f"[{time.perf_counter() - _T0:.0f} s]",)
     print(*parts, flush=True)
 
 
@@ -1894,12 +1937,14 @@ def profile_round(torch, eng, state, shape, label="frozen", eta=1e-2):
 
 
 def smoke_round_cpu_vs_card(torch, dev, bundle, spec, shape, keys, eta,
-                            label, prepare=lambda st: st, step=None):
+                            label, prepare=lambda st: st, step=None,
+                            tol=(1e-4, 1e-6)):
     """One round (``step``, ``round_step`` by default) of ``bundle`` under
     ``spec`` from one state (the init, through ``prepare``) on the card
     and on the CPU (plain versions), on the first 8 batches (``keys``) of
     ``shape``'s stream for the spec's workers: theta and every z level
-    agree to rtol 1e-4 (atol 1e-6), the mask indices are equal."""
+    agree to ``tol`` = (rtol, atol), 1e-4 and 1e-6 unless given, the mask
+    indices are equal."""
     import numpy as np
     from repro_torch.core.hsadmm import init_state, round_step
     from repro_torch.data.synthetic import make_stream
@@ -1921,16 +1966,16 @@ def smoke_round_cpu_vs_card(torch, dev, bundle, spec, shape, keys, eta,
                        + [(f"z{i}", z, gpu["z"][i])
                           for i, z in enumerate(cpu.get("z", []))]):
         for key in a:
-            x, y = a[key].numpy(), g[key].cpu().numpy()
-            np.testing.assert_allclose(y, x, rtol=1e-4, atol=1e-6,
+            x, y = a[key].float().numpy(), g[key].float().cpu().numpy()
+            np.testing.assert_allclose(y, x, rtol=tol[0], atol=tol[1],
                                        err_msg=f"{name}/{key}")
             worst = max(worst, float(np.max(np.abs(y - x))))
     for rule in cpu["masks"]:
         if not torch.equal(cpu["masks"][rule]["idx"],
                            gpu["masks"][rule]["idx"].cpu()):
             raise AssertionError(f"mask idx differ for {rule}")
-    say(f"{label} card vs CPU: theta/z within rtol 1e-4 (max abs diff "
-        f"{worst}), mask idx equal")
+    say(f"{label} card vs CPU: theta/z within rtol {tol[0]}, atol {tol[1]} "
+        f"(max abs diff {worst}), mask idx equal")
 
 
 def smoke_resnet_cpu_vs_card(torch, dev):
@@ -2720,18 +2765,26 @@ def check_ssd(torch, dev):
              "library_ms": None, "bf16_ms": out[torch.bfloat16][0]}]
 
 
-def mamba_engine(torch, dev, layers=MAMBA_LAYERS, smoke=False):
+# phases 6 and 10 train the LMs in f32 without recomputation (their
+# numbers stay comparable with the earlier runs'); phase 11 runs the
+# configs' own numerics (bf16, remat) with no override
+F32_PLAIN = {"param_dtype": "float32", "remat": False}
+
+
+def mamba_engine(torch, dev, layers=MAMBA_LAYERS, smoke=False,
+                 numerics=F32_PLAIN):
     """Phase 6a's engine: mamba2-780m at full width (or its smoke config),
-    ``layers`` layers, f32, W = 4 at levels (2, 2), compact+q8 from level
-    1, masks frozen after round 2, the config's other H-SADMM settings;
-    one 4096-token sequence per worker."""
+    ``layers`` layers, f32 without remat (``numerics``: the config fields
+    that override the config's own), W = 4 at levels (2, 2), compact+q8
+    from level 1, masks frozen after round 2, the config's other H-SADMM
+    settings; one 4096-token sequence per worker."""
     import dataclasses
     from repro_torch.configs import ConsensusSpec, ShapeConfig, get_config
     from repro_torch.models import build
     from repro_torch.train.engine import Engine
     cfg = get_config("mamba2-780m", smoke=smoke)
     hp = dataclasses.replace(cfg.hsadmm, t_freeze=2, wire_inter="compact+q8")
-    cfg = cfg.replace(hsadmm=hp, param_dtype="float32")
+    cfg = cfg.replace(hsadmm=hp, **numerics)
     if layers is not None:
         cfg = cfg.replace(n_layers=layers)
     shape = ShapeConfig("train_4k", "train", 32 if smoke else 4096, 4)
@@ -3603,12 +3656,15 @@ DENSE_MIGRATED = {"blocks/attn/wq": (4, DENSE_LAYERS, 2048, 2, 8, 64),
                   "blocks/mlp/wd": (4, DENSE_LAYERS, 2816, 2048)}
 
 
-def dense_engine(torch, dev, layers=DENSE_LAYERS, smoke=False):
+def dense_engine(torch, dev, layers=DENSE_LAYERS, smoke=False,
+                 numerics=F32_PLAIN):
     """Phase 10a's engine: tinyllama-1.1b at full width (or its smoke
     config with 8 query heads in 4 GQA groups, so that ``heads`` prunes),
-    ``layers`` layers, f32, W = 4 at levels (2, 2), compact+q8 from level
-    1, masks frozen after round 2, reconfiguration after one frozen round;
-    one 4096-token sequence (32 in the smoke config) per worker."""
+    ``layers`` layers, f32 without remat (``numerics``: the config fields
+    that override the config's own), W = 4 at levels (2, 2), compact+q8
+    from level 1, masks frozen after round 2, reconfiguration after one
+    frozen round; one 4096-token sequence (32 in the smoke config) per
+    worker."""
     import dataclasses
     from repro_torch.configs import ConsensusSpec, ShapeConfig, get_config
     from repro_torch.models import build
@@ -3616,7 +3672,7 @@ def dense_engine(torch, dev, layers=DENSE_LAYERS, smoke=False):
     cfg = get_config("tinyllama-1.1b", smoke=smoke)
     hp = dataclasses.replace(cfg.hsadmm, t_freeze=2, reconfig_patience=1,
                              wire_inter="compact+q8")
-    cfg = cfg.replace(hsadmm=hp, param_dtype="float32")
+    cfg = cfg.replace(hsadmm=hp, **numerics)
     if smoke:
         cfg = cfg.replace(n_heads=8, n_kv_heads=4)
     if layers is not None:
@@ -3854,11 +3910,448 @@ def dense_phase(torch, dev, profile=False):
     return kernels, totals, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the configs' own numerics (bf16 parameters and ADMM state,
+# per-layer recomputation)
+# ---------------------------------------------------------------------------
+
+# tinyllama-1.1b layers of phase 11a, of 22, at bf16 with remat: 14
+# peaked at 74.7 GB and 9 at 52.7 GB, about 4.4 GB a layer; 10 is the
+# most under the 60 GB limit
+BF16_LAYERS = 10
+BF16_ROUNDS = 6
+# mamba2-780m layers of phase 11c, of 48: the least the cell asks, since
+# its rounds, like 11a's, are bound by the host's launches
+BF16_MAMBA_LAYERS = 12
+BF16_MAMBA_ROUNDS = 3
+# parameters of 11a's model and its budget-B model; the reference's
+# inter-node bytes of a dynamic / frozen (and reconfigured) round over
+# compact+q8 at 11a's and 11c's depths (tests/test_torch_bf16.py BYTES)
+BF16_PARAMS = (571_516_928, 351_315_968)
+BF16_BYTES = (353_753_332, 353_527_892)
+BF16_MAMBA_BYTES = (248_950_436, 248_948_132)
+BF16_TOL = (2e-2, 2e-2)   # rtol, atol: the JAX suite's bf16 tolerance
+
+
+def _bf16_round(torch, x):
+    """``x`` (f32) rounded to bf16 and back: one bf16 operation's result."""
+    return x.to(torch.bfloat16).float()
+
+
+def prox_f32_route(torch, xs, rho, eta, momentum):
+    """The bf16 prox update on the f32 route: every operation in f32 on
+    the bf16 operands, its result rounded to bf16 at once (what JAX's bf16
+    arithmetic does), the momentum a bf16 value; -> bf16 (theta', mom')."""
+    from repro_torch.kernels import ref
+    r = functools.partial(_bf16_round, torch)
+    th, g, z, u, m = (x.float() for x in xs)
+    rho, eta = rho.float(), eta.float()
+    mu = ref.weak(momentum, torch.bfloat16)
+    mn = r(r(mu * m) + r(g + r(rho * r(r(th - z) + u))))
+    return r(th - r(eta * mn)).to(torch.bfloat16), mn.to(torch.bfloat16)
+
+
+def check_prox_bf16(torch, shapes, W, dev):
+    """The bf16 entry of fused_prox_sgd_dyn on every leaf of ``shapes`` at
+    W workers (seeded data, one leaf at a time: phase 11a's largest leaves
+    take gigabytes): bit-equal to the plain version, to the f32 route
+    (``prox_f32_route``) and to a second launch; timed per leaf and summed
+    (one-piece windows), beside the f32 entry on the same values and the
+    plain version, against the bound at 2-byte operands."""
+    from repro_torch.kernels import fused_prox_sgd as fp
+    from repro_torch.kernels import ops, ref
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n = rows = 0
+    ms = ms32 = plain = 0.0
+    for shape in shapes.values():
+        R, C = ops._rc((W,) + tuple(shape))
+        xs = [torch.randn((R, C), generator=gen, device=dev).to(bf)
+              for _ in range(5)]
+        rho = torch.full((1, 1), 1e-3, device=dev).to(bf).expand(R, 1)
+        eta = torch.full((1, 1), 1e-3, device=dev).to(bf)
+        one = functools.partial(fp.fused_prox_sgd_dyn, *xs, rho, eta,
+                                momentum=0.9)
+        t, m = one()
+        t2, m2 = one()
+        tp, mp = ref.fused_prox_sgd_ref(*xs, eta=eta, rho=rho, momentum=0.9)
+        if not (torch.equal(t, t2) and torch.equal(m, m2)):
+            raise AssertionError(f"bf16 prox: two launches differ at "
+                                 f"{(R, C)}")
+        if not (torch.equal(t, tp) and torch.equal(m, mp)):
+            raise AssertionError(f"bf16 prox vs plain differ at {(R, C)}")
+        del t2, m2, tp, mp
+        tf, mf = prox_f32_route(torch, xs, rho, eta, 0.9)
+        if not (torch.equal(t, tf) and torch.equal(m, mf)):
+            raise AssertionError(f"bf16 prox vs the f32 route differ at "
+                                 f"{(R, C)}")
+        del t, m, tf, mf
+        ms += pieces_ms([one], 10)
+        plain += kernel_ms(lambda: ref.fused_prox_sgd_ref(
+            *xs, eta=eta, rho=rho, momentum=0.9), 3)[0]
+        x32 = [x.float() for x in xs]
+        del xs
+        ms32 += pieces_ms([functools.partial(
+            fp.fused_prox_sgd_dyn, *x32, rho.float(), eta.float(),
+            momentum=0.9)], 10)
+        del x32
+        torch.cuda.empty_cache()
+        n, rows = n + R * C, rows + R
+    b_ms, b_by = bound(14.0 * n + 2.0 * rows + 2.0, 8.0 * n)
+    b32, _ = bound(28.0 * n + 4.0 * rows + 4.0, 8.0 * n)
+    say(f"fused_prox_sgd_dyn bf16: {len(shapes)} leaves at W={W}, {n} "
+        "elements, bit-equal to the plain version, to the f32 route and to "
+        f"a second launch: kernel {ms:.4f} ms ({100 * b_ms / ms:.1f}% of "
+        f"its bound {b_ms:.4f} ms, {b_by}), plain {plain:.4f} ms; the f32 "
+        f"entry on the same values {ms32:.4f} ms (bound {b32:.4f} ms)")
+    return {"name": "fused_prox_sgd_dyn", "dtype": "bfloat16", "route": "cuda",
+            "source": PROX_SRC,
+            "replaces": "src/repro/kernels/fused_prox_sgd.py:72",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "f32_ms": ms32,
+            "f32_bound_ms": b32}
+
+
+def check_quantize_bf16(torch, payload_shapes, lead, dev):
+    """quantize_rows on bf16 rows of every compact payload leaf (``lead``
+    members, seeded data), with NaN and inf rows and odd widths as edge
+    cases: bit-equal to the plain version, to the f32 route (the same
+    rows as f32, which the f32 entry reads) and to a second launch; timed
+    beside the f32 entry on the same values, against the bound at 2-byte
+    reads."""
+    from repro_torch.kernels import ref, wire
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(12)
+    xs = []
+    for shape in payload_shapes.values():
+        R = lead * (math.prod(shape[:-1]) if len(shape) >= 2 else 1)
+        xs.append((torch.randn((R, shape[-1] if shape else 1), generator=gen,
+                               device=dev) * 0.05).to(bf))
+    edges = []
+    for C in (10, 64, 2048, 2049, 8192):
+        x = torch.randn((37, C), generator=gen, device=dev)
+        x[3, 1], x[5, -1], x[7, 0] = float("nan"), float("inf"), \
+            -float("inf")
+        edges.append(x.to(bf))
+    edges.append(torch.randn((37 * 2048 + 1,), generator=gen, device=dev)
+                 .to(bf)[1:].view(37, 2048))
+    for x in xs + edges:
+        q, s = wire.quantize_rows(x)
+        q2, s2 = wire.quantize_rows(x)
+        qp, sp = ref.quantize_rows_ref(x)
+        qf, sf = wire.quantize_rows(x.float())
+        for qq, ss, what in ((q2, s2, "a second launch"), (qp, sp, "plain"),
+                             (qf, sf, "the f32 route")):
+            if not torch.equal(q, qq):
+                raise AssertionError(f"quantize_rows bf16 vs {what} differ "
+                                     f"at {tuple(x.shape)}")
+            torch.testing.assert_close(s, ss, rtol=0, atol=0, equal_nan=True)
+    torch.cuda.synchronize()
+    rows = sum(x.shape[0] for x in xs)
+    n = sum(x.numel() for x in xs)
+    b_ms, b_by = bound(3.0 * n + 4.0 * rows, 7.0 * n)
+    b32, _ = bound(5.0 * n + 4.0 * rows, 7.0 * n)
+    ms = pieces_ms([functools.partial(wire.quantize_rows, x) for x in xs], 20)
+    x32 = [x.float() for x in xs]
+    ms32 = pieces_ms([functools.partial(wire.quantize_rows, x)
+                      for x in x32], 20)
+    plain, _ = kernel_ms(lambda: [ref.quantize_rows_ref(x) for x in xs], 5)
+    say(f"quantize_rows bf16: {len(xs)} payload leaves at {lead} nodes "
+        f"({n} elements) and {len(edges)} edge cases (C = 10, 64, 2048, "
+        "2049, 8192 with NaN and inf rows, a base 2 bytes off alignment) "
+        "bit-equal to the plain version, the f32 route and a second "
+        f"launch: kernel {ms:.4f} ms ({100 * b_ms / ms:.1f}% of its bound "
+        f"{b_ms:.4f} ms, {b_by}), plain {plain:.4f} ms; the f32 entry on "
+        f"the same values {ms32:.4f} ms (bound {b32:.4f} ms)")
+    return {"name": "quantize_rows", "dtype": "bfloat16", "route": "cuda",
+            "source": WIRE_SRC, "replaces": "src/repro/kernels/wire.py:53",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "f32_ms": ms32,
+            "f32_bound_ms": b32}
+
+
+def bf16_kernels(torch, dev):
+    """Phase 11: the bf16 entries at phase 11a's operands (12 leaves at W
+    = 4, the 12 compact payload leaves at 2 nodes)."""
+    from repro_torch.core.masks import MaskSyncConfig, budget
+    from repro_torch.core.shrinkage import plan_payload_shapes
+    eng, _ = dense_engine(torch, dev, layers=BF16_LAYERS, numerics={})
+    bundle = eng.bundle
+    budgets = {r.name: budget(r, MaskSyncConfig()) for r in bundle.plan.rules}
+    payload = plan_payload_shapes(bundle.shapes, bundle.plan, budgets)
+    out = [check_prox_bf16(torch, bundle.shapes, 4, dev),
+           check_quantize_bf16(torch, payload, 2, dev)]
+    torch.cuda.empty_cache()
+    return [dict(k, operands="tinyllama-bf16") for k in out]
+
+
+def _lm_numerics(r, label, layers, dtype, remat):
+    eng = r["eng"]
+    cfg = eng.cfg
+    if (cfg.param_dtype, cfg.remat, cfg.n_layers) != (dtype, remat, layers):
+        raise AssertionError(f"{label}: ran {cfg.param_dtype}, remat "
+                             f"{cfg.remat}, {cfg.n_layers} layers")
+    leaf = next(iter(r["state"]["theta"].values()))
+    if str(leaf.dtype) != f"torch.{dtype}":
+        raise AssertionError(f"{label}: theta in {leaf.dtype}")
+
+
+def train_dense_bf16(torch, dev):
+    """Phase 11a: tinyllama-1.1b at full width, the config's bf16 and
+    remat, BF16_LAYERS layers, through freeze and reconfiguration (phase
+    10a's setup), checked as 10a is."""
+    r = run_path(torch, dense_engine(torch, dev, layers=BF16_LAYERS,
+                                     numerics={}),
+                 BF16_ROUNDS, 1e-3, reconfig=True)
+    rep, launches, eng = r["rep"], r["launches"], r["eng"]
+    _lm_numerics(r, "11a", BF16_LAYERS, "bfloat16", True)
+    rc = rep.final_engine
+    n = sum(math.prod(s) for s in eng.bundle.shapes.values())
+    n2 = sum(math.prod(s) for s in rc.bundle.shapes.values())
+    say(f"train tinyllama bf16: tinyllama-1.1b full width, {BF16_LAYERS} of "
+        f"22 layers ({n} parameters, {len(eng.bundle.shapes)} leaves, "
+        "bfloat16, remat), W=4 levels (2, 2), compact+q8, one 4096-token "
+        f"sequence per worker, E=8, eta 1e-3, reconfig patience 1, "
+        f"{rep.outer_iters} rounds in {r['wall']:.2f} s; budget-B model "
+        f"d_ff {rc.cfg.d_ff}, {rc.cfg.n_kv_heads} GQA groups, {n2} "
+        "parameters")
+    for k in range(rep.outer_iters):
+        say(f"round {k}: {rep.executables[k]} loss={rep.losses[k]:.6f} "
+            f"wall_ms={rep.wall_times[k] * 1e3:.1f} "
+            f"internode_bytes={rep.comm_bytes_internode[k]} "
+            f"launches={launches[k]}")
+    r_at = rep.reconfigured_at
+    full = [w * 1e3 for w in rep.wall_times[1:r_at]]
+    small = [w * 1e3 for w in rep.wall_times[r_at + 1:]]
+    summary = {
+        "layers": BF16_LAYERS, "full_walls_ms": full,
+        "full_median_ms": _median(full), "reconfigured_walls_ms": small,
+        "reconfigured_median_ms": _median(small),
+        "tokens_per_s_full": DENSE_TOKENS / (_median(full) * 1e-3),
+        "tokens_per_s_reconfigured": DENSE_TOKENS / (_median(small) * 1e-3),
+        "migration_ms": rep.reconfig_seconds * 1e3, "peak_bytes": r["peak"]}
+    say(f"dense bf16: {json.dumps(summary)}")
+    if not all(math.isfinite(x) for x in rep.losses):
+        raise AssertionError(f"non-finite losses {rep.losses}")
+    want_x = ["dynamic"] * 2 + ["frozen"] \
+        + ["reconfigured"] * (rep.outer_iters - 3)
+    if rep.executables != want_x or rep.frozen_at != 2 or r_at != 3:
+        raise AssertionError(f"executables {rep.executables}, frozen_at "
+                             f"{rep.frozen_at}, reconfigured_at {r_at}")
+    if (n, n2) != BF16_PARAMS:
+        raise AssertionError(f"parameters {n} / {n2}")
+    want_b = [BF16_BYTES[0]] * 2 + [BF16_BYTES[1]] * (rep.outer_iters - 2)
+    if rep.comm_bytes_internode != want_b:
+        raise AssertionError(f"bytes {rep.comm_bytes_internode}")
+    want = dense_round_launches(eng.bundle.plan, len(eng.bundle.shapes))
+    gathers = want["gather_groups"]
+    for k, c in enumerate(launches):
+        w = dict(want, group_norms_sq=want["group_norms_sq"]
+                 if rep.executables[k] == "dynamic" else 0,
+                 gather_groups=gathers + (6 * gathers // 2
+                                          if k == r_at else 0))
+        if any(c[name] != v for name, v in w.items()):
+            raise AssertionError(f"round {k} launches {c}; expected {w}")
+    if r["peak"] >= 60e9:
+        raise AssertionError(f"peak {r['peak']} bytes >= 60 GB")
+    r["summary"] = summary
+    r["eng"] = rc
+    return r
+
+
+def _host_state(torch, state):
+    """The final theta and every z level, copied to the host (two states
+    of phase 11a's model do not fit on the card together)."""
+    def cpu(tree):
+        return {k: v.cpu() for k, v in tree.items()}
+    return {"theta": cpu(state["theta"]), "z": [cpu(z) for z in state["z"]]}
+
+
+def determinism_dense_bf16(torch, dev, first):
+    """Phase 11b: phase 11a again, through the freeze, the migration
+    and the reconfigured rounds: losses, mask indices after every round,
+    the final theta and every z level (11a's on the host) bit-equal."""
+    again = run_path(torch, dense_engine(torch, dev, layers=BF16_LAYERS,
+                                         numerics={}),
+                     BF16_ROUNDS, 1e-3, reconfig=True)
+    again["state"] = _host_state(torch, again["state"])
+    compare_runs(torch, first, again, "tinyllama bf16")
+
+
+def train_mamba_bf16(torch, dev):
+    """Phase 11c: mamba2-780m at full width, the config's bf16 and remat,
+    BF16_MAMBA_LAYERS layers, phase 6a's setup, BF16_MAMBA_ROUNDS rounds:
+    finite losses, the reference's bytes, per round 2 scan launches a
+    layer and step (the forward without a graph, then the recomputation
+    in the backward), 6a's other launches; peak under 60 GB; the scan's
+    bf16 launches in training timed at their operands (the first call's,
+    recorded); then the run again, bit-equal."""
+    from repro_torch.kernels import ops
+    seen = []
+    real = ops.ssd_chunk_scan
+
+    def recording(*a, **kw):
+        if not seen:
+            seen.append((a, kw))
+        return real(*a, **kw)
+    eng = mamba_engine(torch, dev, layers=BF16_MAMBA_LAYERS, numerics={})
+    with patched(ops, "ssd_chunk_scan", recording):
+        r = run_path(torch, eng, BF16_MAMBA_ROUNDS, 1e-3)
+    rep, launches = r["rep"], r["launches"]
+    _lm_numerics(r, "11c", BF16_MAMBA_LAYERS, "bfloat16", True)
+    n = sum(math.prod(s) for s in r["eng"].bundle.shapes.values())
+    say(f"train mamba2 bf16: mamba2-780m full width, {BF16_MAMBA_LAYERS} of "
+        f"48 layers ({n} parameters, bfloat16, remat), W=4 levels (2, 2), "
+        f"compact+q8, one 4096-token sequence per worker, eta 1e-3, "
+        f"{rep.outer_iters} rounds in {r['wall']:.2f} s")
+    for k in range(rep.outer_iters):
+        say(f"round {k}: {rep.executables[k]} loss={rep.losses[k]:.6f} "
+            f"wall_ms={rep.wall_times[k] * 1e3:.1f} "
+            f"internode_bytes={rep.comm_bytes_internode[k]} "
+            f"launches={launches[k]}")
+    if not all(math.isfinite(x) for x in rep.losses):
+        raise AssertionError(f"non-finite losses {rep.losses}")
+    want_b = [BF16_MAMBA_BYTES[0]] * 2 \
+        + [BF16_MAMBA_BYTES[1]] * (rep.outer_iters - 2)
+    if rep.comm_bytes_internode != want_b:
+        raise AssertionError(f"bytes {rep.comm_bytes_internode}")
+    want = dict(mamba_round_launches(r["eng"].bundle.plan,
+                                     len(r["eng"].bundle.shapes)),
+                ssd_chunk_scan=2 * BF16_MAMBA_LAYERS * 8)
+    for k, c in enumerate(launches):
+        w = dict(want, group_norms_sq=want["group_norms_sq"]
+                 if rep.executables[k] == "dynamic" else 0)
+        if any(c[name] != v for name, v in w.items()):
+            raise AssertionError(f"round {k} launches {c}; expected {w}")
+    if r["peak"] >= 60e9:
+        raise AssertionError(f"peak {r['peak']} bytes >= 60 GB")
+    (a, kw), = seen
+    if a[0].dtype != torch.bfloat16:
+        raise AssertionError(f"the scan ran on {a[0].dtype}")
+    scan_ms, _ = kernel_ms(lambda: real(*a, **kw), 5)
+    walls = [w * 1e3 for w in rep.wall_times[1:]]
+    summary = {"layers": BF16_MAMBA_LAYERS, "walls_ms": walls,
+               "median_ms": _median(walls), "peak_bytes": r["peak"],
+               "tokens_per_s": DENSE_TOKENS / (_median(walls) * 1e-3),
+               "scan_bf16_ms": scan_ms, "scan_shape": list(a[0].shape),
+               "scan_launches_per_round": want["ssd_chunk_scan"],
+               "scan_ms_per_round": scan_ms * want["ssd_chunk_scan"]}
+    say(f"mamba2 bf16: {json.dumps(summary)}")
+    totals = r["totals"]
+    first = _slim(r)
+    del r
+    again = _slim(run_path(torch, mamba_engine(
+        torch, dev, layers=BF16_MAMBA_LAYERS, numerics={}),
+        BF16_MAMBA_ROUNDS, 1e-3))
+    compare_runs(torch, first, again, "mamba2 bf16")
+    return summary, totals
+
+
+def smoke_bf16_cpu_vs_card(torch, dev):
+    """Phase 11d: one bf16 tinyllama smoke round (8 query heads in 4 GQA
+    groups) and one bf16 mamba2 smoke round, remat, on the card and on
+    the CPU from one state, within rtol = atol = 2e-2."""
+    bf = {"param_dtype": "bfloat16"}
+    for name, (eng, shape) in (
+            ("tinyllama", dense_engine(torch, dev, layers=None, smoke=True,
+                                       numerics=bf)),
+            ("mamba2", mamba_engine(torch, dev, layers=None, smoke=True,
+                                    numerics=bf))):
+        if (eng.cfg.param_dtype, eng.cfg.remat) != ("bfloat16", True):
+            raise AssertionError(f"{name} smoke: {eng.cfg.param_dtype}, "
+                                 f"remat {eng.cfg.remat}")
+        smoke_round_cpu_vs_card(torch, dev, eng.bundle, eng.spec, shape,
+                                ("tokens",), 1e-3,
+                                f"{name} bf16 smoke round", tol=BF16_TOL)
+
+
+def remat_round(torch, dev, layers=DENSE_LAYERS, dtype="float32"):
+    """Phase 11e (11f: ``layers`` and ``dtype`` of phase 11a): one round of
+    phase 10a's configuration (f32, 3 layers) with remat and without,
+    from one state: losses, mask indices and the new state's every tensor
+    bit-equal; both peaks."""
+    from repro_torch.dist.checkpoint import _flatten
+    runs = {}
+    for remat in (True, False):
+        r = run_path(torch, dense_engine(
+            torch, dev, layers=layers,
+            numerics={"param_dtype": dtype, "remat": remat}), 1, 1e-3)
+        if r["eng"].cfg.remat != remat:
+            raise AssertionError(f"11e: remat {r['eng'].cfg.remat}")
+        # the state on the host, so that the other run's peak is its own
+        runs[remat] = {"rep": r["rep"], "peak": r["peak"],
+                       "masks": {k: v.cpu() for k, v in r["masks"][0].items()},
+                       "state": {k: v.cpu() for k, v in
+                                 _flatten(r["state"]).items()}}
+        del r
+        torch.cuda.empty_cache()
+    a, b = runs[True], runs[False]
+    if a["rep"].losses != b["rep"].losses:
+        raise AssertionError(f"11e: losses {a['rep'].losses} vs "
+                             f"{b['rep'].losses}")
+    if _first_diff(torch, a["masks"], b["masks"]):
+        raise AssertionError("11e: mask indices differ")
+    fa, fb = a["state"], b["state"]
+    if set(fa) != set(fb):
+        raise AssertionError("11e: state trees differ")
+    d = _first_diff(torch, fa, fb)
+    if d:
+        raise AssertionError(f"11e: {d[0]} differs by up to {d[1]}")
+    out = {"layers": layers, "dtype": dtype, "peak_remat": a["peak"],
+           "peak_plain": b["peak"], "leaves": len(fa)}
+    say(f"remat {dtype} round (tinyllama, {layers} layers): loss "
+        f"{a['rep'].losses}, mask indices and all {len(fa)} state tensors "
+        f"bit-equal with and without remat; peak {a['peak']} bytes with "
+        f"remat, {b['peak']} without")
+    return out
+
+
+def bf16_phase(torch, dev, profile=False):
+    """Phase 11 (all of it; ``--bf16`` runs it alone after phase 1, with
+    ``profile``: one more reconfigured round of 11a's path under the
+    profiler, and phase 11f): returns (kernels-line entries, 11a's launch
+    totals, 11c's launch totals, a summary)."""
+    t0 = time.perf_counter()
+    kernels = bf16_kernels(torch, dev)
+    say("phase 11 bf16 kernels vs plain and f32 routes: ok")
+    dense = train_dense_bf16(torch, dev)
+    d_totals, summary = dense["totals"], {"tinyllama": dense["summary"]}
+    host = _host_state(torch, dense["state"])
+    if profile:
+        summary["tinyllama"]["busy_reconfigured"], _ = profile_round(
+            torch, dense["eng"], dense["state"], dense["shape"],
+            label="tinyllama bf16 reconfigured", eta=1e-3)
+    dense = {"rep": dense["rep"], "masks": dense["masks"], "state": host}
+    torch.cuda.empty_cache()
+    say(f"phase 11a train tinyllama bf16: ok, launches {d_totals}")
+    determinism_dense_bf16(torch, dev, dense)
+    del dense
+    torch.cuda.empty_cache()
+    say("phase 11b determinism: ok")
+    summary["mamba2"], m_totals = train_mamba_bf16(torch, dev)
+    torch.cuda.empty_cache()
+    say(f"phase 11c train mamba2 bf16: ok, launches {m_totals}")
+    smoke_bf16_cpu_vs_card(torch, dev)
+    say("phase 11d bf16 smoke rounds card vs CPU: ok")
+    summary["remat_f32"] = remat_round(torch, dev)
+    torch.cuda.empty_cache()
+    say("phase 11e remat vs plain backward, f32: ok")
+    if profile:
+        summary["remat_bf16"] = remat_round(torch, dev, BF16_LAYERS,
+                                            "bfloat16")
+        torch.cuda.empty_cache()
+        say("phase 11f remat vs plain backward at 11a's configuration: ok")
+    summary["seconds"] = time.perf_counter() - t0
+    return kernels, d_totals, m_totals, summary
+
+
 def main(argv) -> int:
     if argv not in ([], ["--ssd"], ["--wire"], ["--rounds"],
-                    ["--baselines"], ["--variants"], ["--dense"]):
+                    ["--baselines"], ["--variants"], ["--dense"],
+                    ["--bf16"]):
         return fail("usage: chip_smoke.py [--ssd | --wire | --rounds | "
-                    f"--baselines | --variants | --dense] (got {argv})")
+                    "--baselines | --variants | --dense | --bf16] (got "
+                    f"{argv})")
     try:
         import torch
     except ImportError:
@@ -3880,6 +4373,7 @@ def main(argv) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()
+    t_script = time.perf_counter()
     try:
         t0 = time.perf_counter()
         logs = _build.build_all()
@@ -3889,8 +4383,16 @@ def main(argv) -> int:
             for line in ptxas_lines(log):
                 say(f"  ptxas {name}: {line}")
         if argv:   # --ssd: phase 6; --wire: the wire kernels; --rounds;
-            # --baselines: phase 8; --variants: phase 9; --dense: phase 10
-            if argv[0] == "--dense":
+            # --baselines: phase 8; --variants: phase 9; --dense: phase
+            # 10; --bf16: phase 11
+            if argv[0] == "--bf16":
+                kernels, b_totals, _, b_sum = bf16_phase(torch, dev,
+                                                         profile=True)
+                for k in kernels:
+                    k["launches"], k["launches_path"] = \
+                        b_totals[k["name"]], "11a"
+                say(f"summary bf16: {json.dumps(b_sum)}")
+            elif argv[0] == "--dense":
                 kernels, _, summary = dense_phase(torch, dev, profile=True)
                 say(f"summary tinyllama: {json.dumps(summary)}")
             elif argv[0] == "--baselines":
@@ -4020,6 +4522,9 @@ def main(argv) -> int:
         dense_k, d_totals, d_sum = dense_phase(torch, dev)
         kernels += dense_k
 
+        bf16_k, b_totals, _, b_sum = bf16_phase(torch, dev)
+        kernels += bf16_k
+
         # the main paths' end-to-end numbers again, next to the result
         say("summary: round wall_ms "
             f"{[round(w * 1e3, 1) for w in rep.wall_times]}, losses "
@@ -4048,6 +4553,8 @@ def main(argv) -> int:
             f"{base['topk']['sparsify_ms_per_step']:.2f} ms a step, "
             f"{100 * base['topk']['sparsify_share']:.1f}% of a Top-K step")
         say(f"summary tinyllama: {json.dumps(d_sum)}")
+        say(f"summary bf16: {json.dumps(b_sum)}")
+        say(f"summary script: {time.perf_counter() - t_script:.1f} s")
     except Exception as e:   # any phase failing fails the run, loudly
         import traceback
         traceback.print_exc()
@@ -4057,16 +4564,18 @@ def main(argv) -> int:
     # prox-SGD, quantize_rows, the gather and the group norms, 3b for the
     # q4 quantizer, 3c for the q4 codec API's gather and unpack kernels,
     # 3d for the q8 codec API's gather kernels, 6a for the SSD scan; the
-    # rows at the tinyllama operands: 10a)
+    # rows at the tinyllama operands: 10a; the bf16 entries: 11a)
     paths = {"quantize_pack_q4": ("3b", rc_totals),
              "ssd_chunk_scan": ("6a", m_totals),
              "gather_quantize_q4": ("3c", api),
              "unpack_gather_dequantize_q4": ("3c", api),
              "gather_quantize": ("3d", api8),
              "gather_dequantize": ("3d", api8)}
+    by_operands = {"tinyllama": ("10a", d_totals),
+                   "tinyllama-bf16": ("11a", b_totals)}
     for k in kernels:
-        path, counts = ("10a", d_totals) if k.get("operands") == "tinyllama" \
-            else paths.get(k["name"], ("3", totals))
+        path, counts = by_operands.get(k.get("operands")) \
+            or paths.get(k["name"], ("3", totals))
         k["launches"], k["launches_path"] = counts[k["name"]], path
     for line in smi:
         say(line)

@@ -155,6 +155,9 @@ class ArchConfig:
 
     # numerics / distribution policy
     param_dtype: str = "float32"
+    # recompute each block in the backward (the LM families; the reference
+    # wraps each layer in jax.checkpoint): only the blocks' inputs are kept
+    remat: bool = True
     grad_accum: int = 1
     consensus: ConsensusSpec = field(default_factory=ConsensusSpec)
     hsadmm: HsadmmConfig = field(default_factory=HsadmmConfig)

@@ -12,6 +12,14 @@ compute on the same numbers.  Like every entry point of the port, the
 asks for the CPU (``device="cpu"``); the ``*_to_jax`` ones return numpy
 trees that ``jax.numpy.asarray`` takes as they are.
 
+bfloat16 crosses numpy as its 2-byte words (:func:`to_numpy`,
+:func:`from_numpy`): numpy has no bf16 of its own, and this package does
+not import ``ml_dtypes`` (the JAX package's bf16 arrays are of its type);
+a bf16 leaf converts bit for bit both ways.  The ``*_to_jax`` trees
+type those words as numpy's ``bfloat16`` where a module has registered
+it (``ml_dtypes``, which JAX imports), so that JAX takes them; a
+checkpoint writes its own fixed header (``dist.checkpoint``).
+
 A RECONFIGURED JAX state (budget-B shapes, its migrated masks) converts
 the same way; :func:`masks_from_jax` carries the frozen full-shape masks
 it was derived from (``Engine.frozen_masks``), so the port can rebuild
@@ -36,8 +44,44 @@ def _flat(tree: dict, prefix: str = "") -> dict:
     return out
 
 
+def _bf16_dtype() -> np.dtype:
+    """numpy's ``bfloat16`` where a module has registered it (``ml_dtypes``,
+    which JAX imports), else the 2-byte void type that a bf16 array of an
+    ``np.savez`` loads as."""
+    try:
+        return np.dtype("bfloat16")
+    except TypeError:
+        return np.dtype("V2")
+
+
+def is_bf16(a: np.ndarray) -> bool:
+    """Does ``a`` hold bf16 words: numpy's ``bfloat16`` (by its name), or
+    the 2-byte void type a saved one loads as?"""
+    return a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                          and a.dtype.itemsize == 2
+                                          and a.dtype.names is None)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; a bf16 one as its 2-byte
+    words, typed :func:`_bf16_dtype` (what JAX would give where numpy
+    knows bf16)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_bf16_dtype())
+    return t.numpy()
+
+
+def from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a CPU tensor sharing its memory; bf16 words
+    (:func:`is_bf16`) as ``torch.bfloat16``."""
+    if is_bf16(a):
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def _tensor(x, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, copy=True)).to(device)
+    return from_numpy(np.array(x, copy=True)).to(device)
 
 
 def params_from_jax(tree: dict, device=None) -> dict:
@@ -93,7 +137,7 @@ def _nested(flat: dict) -> dict:
         node = out
         for p in path:
             node = node.setdefault(p, {})
-        node[leaf] = v.detach().cpu().numpy()
+        node[leaf] = to_numpy(v)
     return out
 
 

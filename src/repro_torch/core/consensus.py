@@ -11,7 +11,9 @@
            penalties (with scaled-dual rescaling), mask drift
 
 ``state["weights"]`` scales each worker's contribution; all means are
-weight-normalized.  Every group exchange routes through the boundary's
+weight-normalized.  A Python number that meets a leaf is first rounded to
+the leaf's dtype (``kernels.ref.weak``), as JAX's weak typing rounds it
+against a bf16 leaf.  Every group exchange routes through the boundary's
 wire codec (``repro_torch.comm``).  On one card the "collectives" are
 reductions over the stacked worker dim.
 
@@ -35,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from ..comm import group_sum
+from ..kernels.ref import weak
 from .hsadmm import EngineSpec, bcast_rho, ungroup
 from .masks import mask_drift, sync_masks
 from .shrinkage import compact_params, expand_params
@@ -186,7 +189,7 @@ def consensus_step(state: dict, spec: EngineSpec, frozen: bool = False,
             r1 = bcast_rho(rho[0][key], b, sn, 1)
             num = r1 * b
             den = r1 * _col(wk_for(key)[1], b) \
-                + hp.weight_decay / max(M1, 1)
+                + weak(hp.weight_decay / max(M1, 1), b.dtype)
             if K > 1:
                 r2 = bcast_rho(rho[1][key], b, sn, 1)
                 num = num + r2 * z2v[key]
@@ -239,7 +242,8 @@ def consensus_step(state: dict, spec: EngineSpec, frozen: bool = False,
             sn = spec.stack_ndims(key)
             wsum = _col(wk_for(key)[k], b)
             if k == K:                            # Eq. 11: weighted mean
-                out[key] = (b / torch.clamp_min(wsum, 1e-12)).to(b.dtype)
+                out[key] = (b / torch.clamp_min(
+                    wsum, weak(1e-12, b.dtype))).to(b.dtype)
             else:
                 rk = bcast_rho(rho[k - 1][key], b, sn, 1)
                 rk1 = bcast_rho(rho[k][key], b, sn, 1)

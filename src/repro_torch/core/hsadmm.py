@@ -246,7 +246,14 @@ def grad_and_value(loss_fn: Callable) -> Callable:
     intermediate of the backward alive until it returns; here the
     backward runs as ``loss.backward()`` would, freeing each saved tensor
     once it is used.  Same gradients, up to the rounding of the backward
-    formulas PyTorch picks when it does not record."""
+    formulas PyTorch picks when it does not record.  A loss that brings
+    its own ``grad_and_value`` (an LM's with ``ArchConfig.remat``, which
+    recomputes each block in the backward: ``models.api.Staged``) is
+    differentiated by it instead."""
+    own = getattr(loss_fn, "grad_and_value", None)
+    if own is not None:
+        return own
+
     def fn(params, batch):
         loss, pullback = vjp(lambda p: loss_fn(p, batch), params)
         with torch.no_grad():

@@ -16,7 +16,9 @@ def resolve_device(device=None) -> torch.device:
 
 def bind_card_settings(device: torch.device) -> torch.device:
     """On the card, run convolutions and matmuls in full f32 (TF32 off,
-    as the reference computes) and make the same seed give the same run:
+    as the reference computes), accumulate bf16 products in f32 (no
+    reduced-precision split-K reduction; the reference's bf16 dots
+    accumulate in f32) and make the same seed give the same run:
     cuDNN's fastest weight-gradient algorithms accumulate with atomics in
     an order that changes from run to run, and autotuning may pick
     another algorithm each time (cuBLAS's fixed workspace is set when the
@@ -25,6 +27,8 @@ def bind_card_settings(device: torch.device) -> torch.device:
     ``device``."""
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False

@@ -13,7 +13,11 @@ Keys are the state's paths joined by ``"/"`` through dicts and lists
 a stateless boundary's empty wire tree writes nothing); the port's flat
 leaf keys are already the reference's nested paths.  Arrays are saved
 with the dtypes the JAX package writes: the port's int64 tensors (mask
-indices) as int32, since the JAX package runs without 64-bit types.
+indices) as int32, since the JAX package runs without 64-bit types, and
+bf16 leaves as their 2-byte words with the header ``'<V2'``, the one a
+JAX save of a bf16 leaf carries (numpy's own 2-byte void type would
+write ``'|V2'``), whatever the process has imported; a load reads them
+back bit for bit.
 :func:`restore` and :func:`restore_elastic` cast every array back to
 the template's dtype and put it on the template leaf's device.
 
@@ -44,10 +48,13 @@ import queue
 import shutil
 import threading
 import traceback
+import zipfile
 from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from ..convert import from_numpy, is_bf16
 
 _PREFIX = "ckpt_"
 _AUX = "aux/"
@@ -89,29 +96,65 @@ def _like_template(template: Any, fn) -> Any:
 
 def _host(x: torch.Tensor, copy: bool) -> np.ndarray:
     """A leaf as the numpy array the JAX package would save: int64 as
-    int32.  ``copy`` guarantees memory of its own (``.cpu()`` of a CPU
-    tensor is the tensor itself)."""
+    int32, bf16 as its 2-byte words (numpy's void type: :func:`_savez`
+    writes their header).  ``copy`` guarantees memory of its own
+    (``.cpu()`` of a CPU tensor is the tensor itself)."""
     t = x.detach().cpu()
     if copy and t.data_ptr() == x.data_ptr():
         t = t.clone()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
     a = t.numpy()
     return a.astype(np.int32) if a.dtype == np.int64 else a
 
 
 def _np_dtype(leaf: torch.Tensor) -> np.dtype:
+    """The numpy dtype an elastic restore builds a leaf in: f32 for bf16
+    (exact for the saved rows; :func:`_as_leaf` rounds the seeds)."""
+    if leaf.dtype == torch.bfloat16:
+        return np.dtype(np.float32)
     return torch.empty((), dtype=leaf.dtype).numpy().dtype
 
 
+def _numeric(a: np.ndarray) -> np.ndarray:
+    """A saved array numpy can compute on: bf16 words as f32 (exact)."""
+    return from_numpy(a).float().numpy() if is_bf16(a) else a
+
+
 def _as_leaf(a: np.ndarray, leaf: torch.Tensor) -> torch.Tensor:
-    """``a`` with the template leaf's dtype, on its device."""
+    """``a`` with the template leaf's dtype, on its device (a bf16 save
+    bit for bit)."""
     if not (a.flags.c_contiguous and a.flags.writeable):
         a = a.copy()
-    return torch.from_numpy(a).to(device=leaf.device, dtype=leaf.dtype)
+    return from_numpy(a).to(device=leaf.device, dtype=leaf.dtype)
 
 
 # ---------------------------------------------------------------------------
 # atomic write path (+ background writer thread)
 # ---------------------------------------------------------------------------
+
+
+# the header numpy gives ml_dtypes' bfloat16, which a JAX save writes
+_BF16_DESCR = "<V2"
+
+
+def _savez(f, arrays: dict[str, np.ndarray]) -> None:
+    """``np.savez(f, **arrays)`` member for member, except that bf16
+    words (:func:`_host`) carry the header :data:`_BF16_DESCR`."""
+    fmt = np.lib.format
+    with zipfile.ZipFile(f, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as z:
+        for k, a in arrays.items():
+            a = np.asanyarray(a)
+            with z.open(k + ".npy", "w", force_zip64=True) as fid:
+                if not is_bf16(a):
+                    fmt.write_array(fid, a, allow_pickle=True)
+                    continue
+                a = np.ascontiguousarray(a)
+                head = fmt.header_data_from_array_1_0(a)
+                head["descr"] = _BF16_DESCR
+                fmt.write_array_header_1_0(fid, head)
+                fid.write(a.tobytes())
 
 
 def _write(ckpt_dir: str, arrays: dict[str, np.ndarray], meta: dict,
@@ -123,7 +166,7 @@ def _write(ckpt_dir: str, arrays: dict[str, np.ndarray], meta: dict,
     os.makedirs(tmp, exist_ok=True)
     try:
         with open(os.path.join(tmp, "arrays.npz"), "wb") as f:
-            np.savez(f, **arrays)
+            _savez(f, arrays)
             f.flush()
             os.fsync(f.fileno())
         with open(os.path.join(tmp, "meta.json"), "w") as f:
@@ -262,7 +305,7 @@ def _global_z(arrays: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     if not ks:
         return {}
     top = f"z/{max(ks)}/"
-    return {p[len(top):]: a.mean(axis=0)
+    return {p[len(top):]: _numeric(a).mean(axis=0)
             for p, a in arrays.items() if p.startswith(top)}
 
 
@@ -330,7 +373,7 @@ def restore_elastic(path: str, template: Any,
         out[...] = fill
         if a is not None and tuple(a.shape[1:]) == tuple(leaf.shape[1:]):
             n = min(a.shape[0], n_new)
-            out[:n] = a[:n]
+            out[:n] = _numeric(a[:n])
         return _as_leaf(out, leaf)
 
     state = _like_template(template, one)

@@ -9,7 +9,8 @@
 //     q[r, c] = (int8) clamp(rint(x[r, c] / s[r]), -levels, levels)
 //
 // Bound on an H100: bytes.  Each element is read as f32 and written as one
-// int8 (5 B), plus one f32 scale per row; the arithmetic is a handful of
+// int8 (5 B; 3 B from bf16 rows, which the TPU kernel takes too), plus one
+// f32 scale per row; the arithmetic is a handful of
 // operations per element, far below the card's flop/byte balance point.
 // The payload rows run from 10 wide (ResNet) to 1536 (Mamba2's embedding,
 // head and output projection, 213,450 rows a round), so the design adapts
@@ -83,27 +84,44 @@ __device__ __forceinline__ int8_t q8_value(float v, float sc, float levels) {
 // row's end; V 1: one float).
 // ---------------------------------------------------------------------------
 
-// Output column c reads column c of the source row (the quantizers).
-struct Dense {
-  const float* x;
-  int64_t ld;   // floats a source row
-  __device__ __forceinline__ const float* row(int64_t r) const {
+// A bf16 value (its 16-bit word) as f32: exact.
+__device__ __forceinline__ float bf_f32(uint32_t h) {
+  return __uint_as_float(h << 16);
+}
+
+__device__ __forceinline__ float as_f32(float x) { return x; }
+__device__ __forceinline__ float as_f32(uint16_t h) { return bf_f32(h); }
+
+// Output column c reads column c of the source row (the quantizers), whose
+// elements are f32 (T float) or bf16 words (T uint16_t, read as f32, as
+// the TPU kernel's astype reads them; a vector of four is one 8-byte
+// load).
+template <class T>
+struct DenseT {
+  const T* x;
+  int64_t ld;   // elements a source row
+  __device__ __forceinline__ const T* row(int64_t r) const {
     return x + r * ld;
   }
   template <int V, int W>
-  __device__ __forceinline__ void load(const float* xr, int64_t j, int64_t n,
+  __device__ __forceinline__ void load(const T* xr, int64_t j, int64_t n,
                                        float (&v)[W]) const {
-    if constexpr (V == 4) {
+    if constexpr (V == 4 && sizeof(T) == 4) {
       const float4 t = __ldg(reinterpret_cast<const float4*>(xr + 4 * j));
       v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+    } else if constexpr (V == 4) {
+      const uint2 t = __ldg(reinterpret_cast<const uint2*>(xr + 4 * j));
+      v[0] = bf_f32(t.x & 0xffffu), v[1] = bf_f32(t.x >> 16);
+      v[2] = bf_f32(t.y & 0xffffu), v[3] = bf_f32(t.y >> 16);
     } else if constexpr (V == 2) {
-      v[0] = __ldg(xr + 2 * j);
-      v[1] = 2 * j + 1 < n ? __ldg(xr + 2 * j + 1) : 0.f;
+      v[0] = as_f32(__ldg(xr + 2 * j));
+      v[1] = 2 * j + 1 < n ? as_f32(__ldg(xr + 2 * j + 1)) : 0.f;
     } else {
-      v[0] = __ldg(xr + j);
+      v[0] = as_f32(__ldg(xr + j));
     }
   }
 };
+using Dense = DenseT<float>;
 
 // Output column c reads column cols[c] of the source row (the fused gather
 // encodes).  Staged (S): cols lie in shared memory as int32 and a vector
@@ -219,7 +237,7 @@ __device__ __forceinline__ void q8_rows(const Ld& ld, int8_t* __restrict__ q,
   // no load is conditional, so all of a lane's loads are issued before
   // the first is used: past the row's end a lane reads its last vector
   // again, and a row past R reads row R - 1 (neither is counted or stored)
-  const float* xr = ld.row(active ? row : R - 1);
+  const auto* xr = ld.row(active ? row : R - 1);
   float v[NV][V];
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
@@ -264,7 +282,7 @@ __device__ __forceinline__ void q8_stream(const Ld& ld, int8_t* __restrict__ q,
   const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (row >= R) return;
   const int64_t nvec = n / V;
-  const float* xr = ld.row(row);
+  const auto* xr = ld.row(row);
   float m = 0.f;
   int64_t j = lane;
   for (; j + 96 < nvec; j += 128) {
@@ -294,22 +312,22 @@ __device__ __forceinline__ void q8_stream(const Ld& ld, int8_t* __restrict__ q,
   if (lane == 0) s[row] = sc;
 }
 
-template <int NV, int V>
+template <int NV, int V, class T>
 __global__ void __launch_bounds__(256)
-    quantize_rows_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+    quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
                          float* __restrict__ s, int64_t R, int64_t C, int L,
                          float levels) {
   __shared__ float warp_max[8];
-  q8_rows<NV, V>(Dense{x, C}, q, s, R, C, L, levels, warp_max);
+  q8_rows<NV, V>(DenseT<T>{x, C}, q, s, R, C, L, levels, warp_max);
 }
 
-template <int V>
+template <int V, class T>
 __global__ void __launch_bounds__(256)
-    quantize_rows_kernel_stream(const float* __restrict__ x,
+    quantize_rows_kernel_stream(const T* __restrict__ x,
                                 int8_t* __restrict__ q,
                                 float* __restrict__ s, int64_t R, int64_t C,
                                 float levels) {
-  q8_stream<V>(Dense{x, C}, q, s, R, C, levels);
+  q8_stream<V>(DenseT<T>{x, C}, q, s, R, C, levels);
 }
 
 // Replaces gather_quantize of src/repro/kernels/wire.py: the q8 encode of
@@ -367,8 +385,8 @@ int launch_q8(const float* x, const int32_t* idx, int8_t* q, float* s,
       gather_quantize_kernel<N, V><<<blocks, 256, smem, st>>>(            \
           x, idx, q, s, R, C, n, lanes, runs, levels);                    \
     else                                                                  \
-      quantize_rows_kernel<N, V><<<blocks, 256, 0, st>>>(x, q, s, R, C,   \
-                                                         lanes, levels);  \
+      quantize_rows_kernel<N, V, float><<<blocks, 256, 0, st>>>(          \
+          x, q, s, R, C, lanes, levels);                                  \
     break;
     QROWS(1) QROWS(2) QROWS(3) QROWS(4) QROWS(6)
 #undef QROWS
@@ -377,8 +395,32 @@ int launch_q8(const float* x, const int32_t* idx, int8_t* q, float* s,
         gather_quantize_kernel_stream<V><<<row_blocks(R), 256, 0, st>>>(
             x, idx, q, s, R, C, n, runs, levels);
       else
-        quantize_rows_kernel_stream<V><<<row_blocks(R), 256, 0, st>>>(
+        quantize_rows_kernel_stream<V, float><<<row_blocks(R), 256, 0, st>>>(
             x, q, s, R, C, levels);
+      break;
+  }
+  return (int)cudaGetLastError();
+}
+
+// One launch of quantize_rows on bf16 rows (the same plan; vec 4 reads
+// four bf16 with one 8-byte load).
+template <int V>
+int launch_q8_bf16(const uint16_t* x, int8_t* q, float* s, int64_t R,
+                   int64_t C, float levels, int lanes, int nv,
+                   cudaStream_t st) {
+  if (!plan_ok(lanes, nv)) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((R * lanes + 255) / 256);
+  switch (nv) {
+#define QROWS(N)                                                          \
+  case N:                                                                 \
+    quantize_rows_kernel<N, V, uint16_t><<<blocks, 256, 0, st>>>(         \
+        x, q, s, R, C, lanes, levels);                                    \
+    break;
+    QROWS(1) QROWS(2) QROWS(3) QROWS(4) QROWS(6)
+#undef QROWS
+    default:
+      quantize_rows_kernel_stream<V, uint16_t>
+          <<<row_blocks(R), 256, 0, st>>>(x, q, s, R, C, levels);
       break;
   }
   return (int)cudaGetLastError();
@@ -943,6 +985,20 @@ int quantize_rows_f32(const float* x, int8_t* q, float* s, int64_t R,
                                  lanes, nv, 0, st)
                   : launch_q8<1>(x, nullptr, q, s, R, C, C, (float)levels,
                                  lanes, nv, 0, st);
+}
+
+// quantize_rows_f32 on bf16 rows (x the rows' 16-bit words); vec 4 reads
+// four with one 8-byte load, which needs C % 4 == 0 and an 8-byte aligned
+// x (kernels/wire.py: quantize_plan with 2-byte elements).
+int quantize_rows_bf16(const uint16_t* x, int8_t* q, float* s, int64_t R,
+                       int64_t C, int levels, int lanes, int nv, int vec,
+                       void* stream) {
+  if (R <= 0 || C <= 0) return (int)cudaSuccess;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return vec == 4 ? launch_q8_bf16<4>(x, q, s, R, C, (float)levels, lanes,
+                                      nv, st)
+                  : launch_q8_bf16<1>(x, q, s, R, C, (float)levels, lanes,
+                                      nv, st);
 }
 
 // lanes and nv as for quantize_rows_f32, over the B output columns; vec 4

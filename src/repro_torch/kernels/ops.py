@@ -68,7 +68,9 @@ def prox_sgd_update(theta, g, z, u, mom, rho, eta, *, momentum=0.9):
     kernel streams rho as one value per (R, C)-view row; when an operand
     is missing (no momentum / no consensus) or rho varies along the minor
     axis, the update is the reference's plain one — its semantics for
-    those layouts, as in ``repro/kernels/ops.py``.  Returns
+    those layouts, as in ``repro/kernels/ops.py``.  ``rho``, ``eta`` and
+    ``momentum`` take theta's dtype, and on both routes every operation
+    rounds to it (a bf16 update is JAX's, ``ref.weak``).  Returns
     (theta', mom' or None)."""
     e = torch.as_tensor(eta, dtype=theta.dtype, device=theta.device)
     has_prox = z is not None
@@ -93,7 +95,7 @@ def prox_sgd_update(theta, g, z, u, mom, rho, eta, *, momentum=0.9):
     if has_prox:
         gtot = g + rho_t * (theta - z.to(theta.dtype) + u)
     if mom is not None:
-        m = momentum * mom + gtot
+        m = _ref.weak(momentum, theta.dtype) * mom + gtot
         return theta - e * m, m
     return theta - e * gtot, None
 
@@ -105,11 +107,14 @@ def _scale_shape(shape: tuple) -> tuple:
 
 def quantize_rows(x, levels: int = 127):
     """Symmetric per-row quantize of any-rank ``x`` in one pass ->
-    (q int8 like x, scale f32 broadcastable against x)."""
+    (q int8 like x, scale f32 broadcastable against x).  The kernel reads
+    f32 and bf16 rows as they are (bf16 to f32 is exact, as the TPU
+    kernel's ``astype`` is); other dtypes go to f32 first."""
     shape = tuple(x.shape)
     R, C = _rc(shape)
-    q, s = _wire.quantize_rows(_view2d(x.to(torch.float32), R, C),
-                               levels=levels)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.to(torch.float32)
+    q, s = _wire.quantize_rows(_view2d(x, R, C), levels=levels)
     return q.view(shape), s.view(_scale_shape(shape))
 
 

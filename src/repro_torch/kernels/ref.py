@@ -10,12 +10,25 @@ import torch
 import torch.nn.functional as F
 
 
+def weak(x: float, dtype) -> float:
+    """A Python number as JAX's weak typing uses it against a tensor of
+    ``dtype``: rounded to that dtype (0.9 against bf16 is 0.8984375).
+    PyTorch keeps a Python number in f32 against a bf16 tensor, so the
+    port rounds it first wherever one meets a tensor."""
+    return float(torch.tensor(x, dtype=dtype))
+
+
 def fused_prox_sgd_ref(theta, g, z, u, mom, *, eta, rho, momentum):
     """Paper Eq. 8 + momentum, one fused memory pass:
     g_tot = g + rho*(theta - z + u);  m' = mu*m + g_tot;  th' = th - eta*m'.
-    ``eta``/``rho`` are numbers or tensors broadcastable against theta."""
+    ``eta``/``rho`` are numbers or tensors (in theta's dtype)
+    broadcastable against theta.  Every operation rounds to theta's dtype
+    and the numbers are rounded to it first, as JAX computes a bf16
+    update (:func:`weak`)."""
+    dt = theta.dtype
+    eta, rho = (x if torch.is_tensor(x) else weak(x, dt) for x in (eta, rho))
     gtot = g + rho * (theta - z + u)
-    mom_new = momentum * mom + gtot
+    mom_new = weak(momentum, dt) * mom + gtot
     return theta - eta * mom_new, mom_new
 
 

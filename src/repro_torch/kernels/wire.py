@@ -57,6 +57,8 @@ def _lib():
         for name, args in (
                 ("quantize_rows_f32",
                  [_P, _P, _P, _I64, _I64] + [_INT] * 4 + [_P]),
+                ("quantize_rows_bf16",
+                 [_P, _P, _P, _I64, _I64] + [_INT] * 4 + [_P]),
                 ("gather_quantize_f32", [_P] * 4 + [_I64] * 3 + [_INT] * 5
                  + [_P]),
                 ("gather_dequantize_f32", [_P] * 4 + [_I64] * 3
@@ -119,12 +121,15 @@ def _lanes(R: int, nvec: int) -> tuple[int, int]:
     return lanes, min(n for n in QUANT_NV if n >= per)
 
 
-def quantize_plan(R: int, C: int, ptr: int) -> tuple[int, int, int]:
-    """(lanes, nv, vec) of ``quantize_rows`` on ``R`` rows of ``C`` floats
-    from address ``ptr``: 16-byte vectors (vec 4) where C % 4 == 0 and the
-    base is 16-byte aligned, else single floats; lanes and vectors a lane
-    as :func:`_lanes` chooses them (nv 0 streams, with lanes 32)."""
-    vec = 4 if C % 4 == 0 and ptr % 16 == 0 else 1
+def quantize_plan(R: int, C: int, ptr: int,
+                  elem: int = 4) -> tuple[int, int, int]:
+    """(lanes, nv, vec) of ``quantize_rows`` on ``R`` rows of ``C``
+    elements of ``elem`` bytes (4: f32, 2: bf16) from address ``ptr``:
+    vectors of four (vec 4: one 16- or 8-byte load) where C % 4 == 0 and
+    the base is aligned to a vector, else single elements; lanes and
+    vectors a lane as :func:`_lanes` chooses them (nv 0 streams, with
+    lanes 32)."""
+    vec = 4 if C % 4 == 0 and ptr % (4 * elem) == 0 else 1
     return _lanes(R, C // vec) + (vec,)
 
 
@@ -257,17 +262,22 @@ def _decode_plan(q4: bool, R: int, Cout: int, Cq: int, qmis: int,
 
 
 def quantize_rows(x, *, levels: int = 127):
-    """x: (R, C) float32 -> (q int8 (R, C), scale f32 (R, 1))."""
+    """x: (R, C) float32 or bfloat16 -> (q int8 (R, C), scale f32 (R,
+    1)); bf16 rows are read as f32 (exactly), so both give the same
+    result."""
     if _on_cpu("quantize_rows", x):
         return ref.quantize_rows_ref(x, levels)
-    _check("quantize_rows", x, torch.float32, x.device, 2)
+    bf16 = x.dtype == torch.bfloat16
+    _check("quantize_rows", x, torch.bfloat16 if bf16 else torch.float32,
+           x.device, 2)
     _levels("quantize_rows", levels)
     R, C = x.shape
     q = torch.empty((R, C), dtype=torch.int8, device=x.device)
     s = torch.empty((R, 1), dtype=torch.float32, device=x.device)
-    lanes, nv, vec = quantize_plan(R, C, x.data_ptr())
-    err = _lib().quantize_rows_f32(x.data_ptr(), q.data_ptr(), s.data_ptr(),
-                                   R, C, levels, lanes, nv, vec, _stream(x))
+    lanes, nv, vec = quantize_plan(R, C, x.data_ptr(), x.element_size())
+    fn = _lib().quantize_rows_bf16 if bf16 else _lib().quantize_rows_f32
+    err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), R, C, levels, lanes,
+             nv, vec, _stream(x))
     _build.check(err, "quantize_rows")
     launches["quantize_rows"] += 1
     return q, s

@@ -136,17 +136,25 @@ def attention_chunk(qblk, k, v, q0: int, *, causal: bool, k_chunk: int):
     operands (the reference's stop-gradient softmax stabilizer), clamped
     at -1e28 for fully masked rows; pass 2 sums ``p = exp(s - m)`` and
     ``p @ v`` over the k chunks in f32.  Under plain autograd every
-    (q chunk, k chunk) block's intermediates are kept for the backward."""
+    (q chunk, k chunk) block's intermediates are kept for the backward.
+
+    A causal block whose keys all lie past the chunk's last query is
+    skipped: the reference computes it, but its scores are all NEG_INF,
+    so it leaves the row max as it is, its ``p`` is exactly 0 and its
+    terms are exact zeros, in the forward and in the VJP.  Skipping it
+    changes no bit of the output and no value of a gradient, and halves
+    the blocks (and the launches) of a causal sequence."""
     B, qc, KV, G, hd = qblk.shape
     S = k.shape[1]
     kc = ref.chunk_len(S, k_chunk)
     scale = 1.0 / math.sqrt(hd)
     qpos = torch.arange(q0, q0 + qc, device=qblk.device)
-    kpos = [torch.arange(j, j + kc, device=k.device) for j in range(0, S, kc)]
+    js = [j for j in range(0, S, kc) if not causal or j < q0 + qc]
+    kpos = [torch.arange(j, j + kc, device=k.device) for j in js]
     m = torch.full((B, KV, G, qc), NEG_INF, dtype=torch.float32,
                    device=qblk.device)
     qd = qblk.detach()
-    for i, j in enumerate(range(0, S, kc)):
+    for i, j in enumerate(js):
         s = _scores(qd, k[:, j:j + kc].detach(), qpos, kpos[i], scale,
                     causal)
         m = torch.maximum(m, s.amax(dim=-1))
@@ -154,7 +162,7 @@ def attention_chunk(qblk, k, v, q0: int, *, causal: bool, k_chunk: int):
     A = torch.zeros((B, KV, G, qc, hd), dtype=torch.float32,
                     device=qblk.device)
     l = torch.zeros((B, KV, G, qc), dtype=torch.float32, device=qblk.device)
-    for i, j in enumerate(range(0, S, kc)):
+    for i, j in enumerate(js):
         s = _scores(qblk, k[:, j:j + kc], qpos, kpos[i], scale, causal)
         p = torch.exp(s - m)
         vblk = v[:, j:j + kc]

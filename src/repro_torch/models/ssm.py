@@ -14,7 +14,10 @@ scan (``ref.ssd_chunk_scan_ref``) has the role the reference's
 ``ssd_scan`` has: the kernel's oracle.
 
 Sparsity target ``ssm_heads``: whole SSD heads (x/dt/A/D/conv/out-proj
-slices), one rule stacked over the layers.  The recurrent serving path
+slices), one rule stacked over the layers.  With ``ArchConfig.remat`` the
+backward recomputes each block (:func:`staged`,
+``core.hsadmm.grad_and_value``), as the reference's per-layer
+``jax.checkpoint`` does.  The recurrent serving path
 (``init_cache``/``step``) waits for a later slice; the family has no
 ``shrink_config``, as in the reference, so it cannot physically
 reconfigure.
@@ -31,7 +34,7 @@ from ..core.sparsity import GroupRule, LeafAxis, SparsityPlan, keep_count
 from ..device import resolve_device
 from ..kernels import ops, ref
 from . import layers as L
-from .api import ModelBundle, pad_to
+from .api import ModelBundle, Staged, lm_staged, pad_to
 
 MODEL_AXIS_SIZE = 16
 
@@ -184,23 +187,21 @@ def mixer_apply(cfg: ArchConfig, p: dict, h):
     return torch.einsum("bthp,hpd->btd", y, p["wo"])
 
 
-def layer_params(params: dict, layer: int) -> dict:
-    """One layer's leaves (``ln``, ``mixer/...``) out of the stacked ones."""
-    return {k[len(_STACK):]: v[layer] for k, v in params.items()
-            if k.startswith(_STACK)}
+def block_apply(cfg: ArchConfig, lp: dict, h, batch: dict):
+    """One residual block over (B, T, d) ``h``; ``lp`` holds the layer's
+    leaves by name (``ln``, ``mixer/...``)."""
+    mixer = {k[len("mixer/"):]: v for k, v in lp.items()
+             if k.startswith("mixer/")}
+    return h + mixer_apply(cfg, mixer, L.rms_norm(h, lp["ln"], cfg.norm_eps))
+
+
+def staged(cfg: ArchConfig) -> Staged:
+    """The loss as embedding, blocks and head (:class:`~.api.Staged`)."""
+    return lm_staged(cfg, block_apply)
 
 
 def train_loss(cfg: ArchConfig, params: dict, batch: dict):
-    tokens = batch["tokens"]
-    h = L.embed_lookup(params["emb"], tokens)
-    for layer in range(cfg.n_layers):
-        bp = layer_params(params, layer)
-        mixer = {k[len("mixer/"):]: v for k, v in bp.items()
-                 if k.startswith("mixer/")}
-        h = h + mixer_apply(cfg, mixer, L.rms_norm(h, bp["ln"], cfg.norm_eps))
-    h = L.rms_norm(h, params["ln_f"], cfg.norm_eps)
-    tgt, valid = L.causal_targets(tokens)
-    return L.chunked_xent(h, params["head"], tgt, valid)
+    return staged(cfg)(params, batch)
 
 
 def sparsity_plan(cfg: ArchConfig) -> SparsityPlan:
@@ -219,10 +220,13 @@ def sparsity_plan(cfg: ArchConfig) -> SparsityPlan:
 
 
 def build(cfg: ArchConfig) -> ModelBundle:
+    """The family's bundle; with ``cfg.remat`` its ``train_loss`` is the
+    :class:`~.api.Staged` loss, whose blocks the backward recomputes."""
     return ModelBundle(
         cfg=cfg,
         init=functools.partial(init, cfg),
-        train_loss=functools.partial(train_loss, cfg),
+        train_loss=staged(cfg) if cfg.remat
+        else functools.partial(train_loss, cfg),
         plan=sparsity_plan(cfg),
         shapes=param_shapes(cfg),
         stack_map=(("blocks", 1),),

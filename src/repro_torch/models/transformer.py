@@ -15,7 +15,9 @@ Structured-sparsity targets:
 
 ``shrink_config`` maps both onto widths (``d_ff``; ``n_kv_heads`` with
 ``n_heads`` at the same group size), so the family reconfigures
-physically.  The serving path (``init_cache``/``step``) waits for a later
+physically.  With ``ArchConfig.remat`` the backward recomputes each
+block (:func:`staged`, ``core.hsadmm.grad_and_value``), as the
+reference's per-layer ``jax.checkpoint`` does.  The serving path (``init_cache``/``step``) waits for a later
 slice; ``param_specs`` and ``constrain_seq`` have no counterpart on one
 card.
 """
@@ -30,7 +32,7 @@ from ..core.coupling import CouplingGraph
 from ..core.sparsity import SparsityPlan, keep_count
 from ..device import resolve_device
 from . import layers as L
-from .api import ModelBundle, pad_to
+from .api import ModelBundle, Staged, lm_staged, pad_to
 
 MODEL_AXIS_SIZE = 16   # the reference's TP width: the ffn rule's shards
 
@@ -93,40 +95,33 @@ def init(cfg: ArchConfig, generator: torch.Generator, device=None) -> dict:
     return {k: v.to(device=device, dtype=dtype) for k, v in params.items()}
 
 
-def layer_params(params: dict, layer: int, part: str) -> dict:
+def _part(lp: dict, part: str) -> dict:
     """One layer's ``part`` leaves (``attn`` or ``mlp``) by name."""
-    pre = f"{_STACK}{part}/"
-    return {k[len(pre):]: v[layer] for k, v in params.items()
-            if k.startswith(pre)}
+    pre = f"{part}/"
+    return {k[len(pre):]: v for k, v in lp.items() if k.startswith(pre)}
 
 
-def block_apply(cfg: ArchConfig, params: dict, layer: int, h, positions):
-    a = L.attention(layer_params(params, layer, "attn"),
-                    L.rms_norm(h, params[_STACK + "ln1"][layer],
-                               cfg.norm_eps),
-                    positions=positions, causal=True,
-                    rope_theta=cfg.rope_theta)
-    h = h + a
-    return h + L.swiglu(layer_params(params, layer, "mlp"),
-                        L.rms_norm(h, params[_STACK + "ln2"][layer],
-                                   cfg.norm_eps))
-
-
-def forward(cfg: ArchConfig, params: dict, tokens, positions):
-    """(B, T) tokens -> (B, T, d) final-normed hidden states."""
-    h = L.embed_lookup(params["emb"], tokens)
-    for layer in range(cfg.n_layers):
-        h = block_apply(cfg, params, layer, h, positions)
-    return L.rms_norm(h, params["ln_f"], cfg.norm_eps)
-
-
-def train_loss(cfg: ArchConfig, params: dict, batch: dict):
+def block_apply(cfg: ArchConfig, lp: dict, h, batch: dict):
+    """One block over (B, T, d) ``h``; ``lp`` holds the layer's leaves by
+    name (``ln1``, ``attn/...``, ``ln2``, ``mlp/...``)."""
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device) \
         .expand(tokens.shape)
-    h = forward(cfg, params, tokens, positions)
-    tgt, valid = L.causal_targets(tokens)
-    return L.chunked_xent(h, params["head"], tgt, valid)
+    a = L.attention(_part(lp, "attn"), L.rms_norm(h, lp["ln1"], cfg.norm_eps),
+                    positions=positions, causal=True,
+                    rope_theta=cfg.rope_theta)
+    h = h + a
+    return h + L.swiglu(_part(lp, "mlp"),
+                        L.rms_norm(h, lp["ln2"], cfg.norm_eps))
+
+
+def staged(cfg: ArchConfig) -> Staged:
+    """The loss as embedding, blocks and head (:class:`~.api.Staged`)."""
+    return lm_staged(cfg, block_apply)
+
+
+def train_loss(cfg: ArchConfig, params: dict, batch: dict):
+    return staged(cfg)(params, batch)
 
 
 def sparsity_plan(cfg: ArchConfig) -> SparsityPlan:
@@ -178,10 +173,13 @@ def shrink_config(cfg: ArchConfig, plan: SparsityPlan,
 
 
 def build(cfg: ArchConfig) -> ModelBundle:
+    """The family's bundle; with ``cfg.remat`` its ``train_loss`` is the
+    :class:`~.api.Staged` loss, whose blocks the backward recomputes."""
     return ModelBundle(
         cfg=cfg,
         init=functools.partial(init, cfg),
-        train_loss=functools.partial(train_loss, cfg),
+        train_loss=staged(cfg) if cfg.remat
+        else functools.partial(train_loss, cfg),
         plan=sparsity_plan(cfg),
         shapes=param_shapes(cfg),
         stack_map=((_STACK[:-1], 1),),

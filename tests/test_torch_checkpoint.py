@@ -329,7 +329,7 @@ def test_failing_write_keeps_the_older_checkpoint(tmp_path, monkeypatch,
 
     def broken(*a, **kw):
         raise OSError("disk full")
-    monkeypatch.setattr(ckpt.np, "savez", broken)
+    monkeypatch.setattr(ckpt, "_savez", broken)
     if background:
         ckpt.save(str(tmp_path), st, {"step": 2}, background=True)
         ckpt.flush()   # the writer reports the error and carries on
